@@ -1,0 +1,84 @@
+"""FlowNetC — siamese towers + correlation cost volume.
+
+Port of ``flownet2_tf_tpu/models/flownet_c.py``: conv1/conv2/conv3 applied
+to input_a and input_b with SHARED weights; the 441-channel cost volume
+``correlation(conv3_a, conv3_b, kernel_size=1, max_displacement=20,
+stride_1=1, stride_2=2, pad=20)`` followed by LeakyReLU; a 1x1x32
+``conv_redir`` on conv3_a; concat ``[redir, corr]`` -> conv3_1 and the
+same encoder tail + decoder as FlowNetS (the level-2 skip is tower-A
+conv2).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from flownet2_tf_tpu_torch.models import common, flownet_s
+from flownet2_tf_tpu_torch.ops.correlation import correlation
+
+NAME = "FlowNetC"
+
+TOWER = [
+    ("conv1", 7, 2, 64),
+    ("conv2", 5, 2, 128),
+    ("conv3", 5, 2, 256),
+]
+
+TAIL = [
+    ("conv3_1", 3, 1, 256),
+    ("conv4", 3, 2, 512),
+    ("conv4_1", 3, 1, 512),
+    ("conv5", 3, 2, 512),
+    ("conv5_1", 3, 1, 512),
+    ("conv6", 3, 2, 1024),
+    ("conv6_1", 3, 1, 1024),
+]
+
+CORR_KWARGS = dict(
+    kernel_size=1, max_displacement=20, stride_1=1, stride_2=2, pad=20
+)
+CORR_CHANNELS = 441
+REDIR_CHANNELS = 32
+
+
+class FlowNetC(nn.Module):
+    def __init__(self, input_channels: int = 3):
+        super().__init__()
+        cin = input_channels
+        for name, k, stride, cout in TOWER:
+            self.add_module(name, common.Conv(k, cin, cout, stride))
+            cin = cout
+        self.conv_redir = common.Conv(1, 256, REDIR_CHANNELS)
+        cin = REDIR_CHANNELS + CORR_CHANNELS
+        for name, k, stride, cout in TAIL:
+            self.add_module(name, common.Conv(k, cin, cout, stride))
+            cin = cout
+        enc_ch = {n: c for n, _, _, c in TOWER + TAIL}
+        flownet_s.add_decoder(self, enc_ch)
+
+    def forward(self, inputs):
+        a = inputs["input_a"]
+        b = inputs["input_b"]
+        n, in_h, in_w, _ = a.shape
+        common.check_divisible_by_64(in_h, in_w)
+        with common.f32_policy():
+            # both towers in one batched pass (shared weights)
+            x = common.nchw(torch.cat([a, b], dim=0))
+            for name, _, _, _ in TOWER:
+                x = getattr(self, name)(x)
+                if name == "conv2":
+                    conv2_a = x[:n]
+            feat_a, feat_b = x[:n], x[n:]
+            # the kernel reads NHWC-contiguous features: one copy each
+            cc = correlation(common.nhwc(feat_a).contiguous(),
+                             common.nhwc(feat_b).contiguous(),
+                             **CORR_KWARGS)
+            cc = common.leaky_relu(cc)
+            redir = self.conv_redir(feat_a)
+            x = torch.cat([redir, common.nchw(cc).to(redir.dtype)], dim=1)
+            acts = {"conv2": conv2_a}
+            for name, _, _, _ in TAIL:
+                x = getattr(self, name)(x)
+                acts[name] = x
+            return flownet_s.decoder(self, acts, (in_h, in_w))

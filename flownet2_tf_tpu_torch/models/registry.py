@@ -1,0 +1,58 @@
+"""Model registry: CLI names -> model classes.
+
+Port of ``flownet2_tf_tpu/models/registry.py``, with the same names and
+aliases. ``get_model(name)`` returns a :class:`ModelSpec`; ``build(device)``
+makes the ``nn.Module`` (weights zero until ``training/warmstart.py``
+loads them).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from torch import nn
+
+from flownet2_tf_tpu_torch.models import flownet_c, flownet_s, flownet_sd, stacks
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    cls: type
+
+    def build(self, device="cpu") -> nn.Module:
+        return self.cls().to(device).eval()
+
+
+_REGISTRY = {
+    "s": ModelSpec("FlowNetS", flownet_s.FlowNetS),
+    "c": ModelSpec("FlowNetC", flownet_c.FlowNetC),
+    "cs": ModelSpec("FlowNetCS", stacks.FlowNetCS),
+    "css": ModelSpec("FlowNetCSS", stacks.FlowNetCSS),
+    "sd": ModelSpec("FlowNetSD", flownet_sd.FlowNetSD),
+    "2": ModelSpec("FlowNet2", stacks.FlowNet2),
+}
+
+# aliases matching the reference package names
+_ALIASES = {
+    "flownet_s": "s",
+    "flownet_c": "c",
+    "flownet_cs": "cs",
+    "flownet_css": "css",
+    "flownet_sd": "sd",
+    "flownet2": "2",
+    "flownet-2": "2",
+}
+
+MODEL_NAMES = tuple(_REGISTRY)
+
+
+def get_model(name: str) -> ModelSpec:
+    key = name.lower()
+    key = _ALIASES.get(key, key)
+    try:
+        return _REGISTRY[key]
+    except KeyError:
+        raise KeyError(
+            f"unknown model {name!r}; available: {sorted(_REGISTRY)}"
+        ) from None

@@ -1,0 +1,181 @@
+"""Stacked models: FlowNetCS, FlowNetCSS and the full FlowNet2 fusion.
+
+Port of the plain assemblies of ``flownet2_tf_tpu/models/stacks.py``:
+
+* FlowNetCS: FlowNetC -> full-res flow; ``warped = stack_warp(input_b,
+  flow)``; ``brightness_error = channel_norm(input_a - warped)``; a
+  FlowNetS second stage on the 12-channel concat
+  ``[input_a, input_b, warped, flow * 0.05, brightness_error]``.
+* FlowNetCSS: the same pattern once more on top of FlowNetCS.
+* FlowNet2: CSS branch + SD branch on the same pair; ``input_b`` warped by
+  both branch flows at once (``stack_warp_multi``); per-branch brightness
+  error and flow magnitude; fusion net on the 11-channel concat
+  ``[input_a, flow_css*0.05, flow_sd*0.05, mag_css, mag_sd, err_css,
+  err_sd]``; ``flow = resize(predict_flow0 * 20)``.
+
+Sub-module names are the JAX package's parameter scopes
+(``FlowNetCSS.FlowNetCS.FlowNetC.conv1`` <-> ``FlowNetCSS/FlowNetCS/
+FlowNetC/conv1``). The assemblies run NHWC, like the JAX package; the
+nets they feed run NCHW. The S2D assemblies, the half-resolution fusion
+input and the coarse warps are TPU layout or approximation work and are
+not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from flownet2_tf_tpu_torch.models import common, flownet_c, flownet_s, flownet_sd
+from flownet2_tf_tpu_torch.models.base import FLOW_SCALE
+from flownet2_tf_tpu_torch.ops.flow_warp import stack_warp, stack_warp_multi
+from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
+
+
+def _second_stage_input(input_a, input_b, flow):
+    """The 12-channel NHWC stage-2 input
+    ``[a, b, warped, flow * 0.05, brightness_error]``."""
+    warped = stack_warp(input_b, flow)
+    brightness_error = common.channel_norm(input_a - warped)
+    return torch.cat(
+        [input_a, input_b, warped, flow * FLOW_SCALE, brightness_error],
+        dim=-1,
+    )
+
+
+class FlowNetCS(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.FlowNetC = flownet_c.FlowNetC()
+        self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
+
+    def forward(self, inputs):
+        preds_c = self.FlowNetC(inputs)
+        x = _second_stage_input(inputs["input_a"], inputs["input_b"],
+                                preds_c["flow"])
+        preds = self.FlowNetS(x)
+        preds["flow_c"] = preds_c["flow"]
+        return preds
+
+
+class FlowNetCSS(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.FlowNetCS = FlowNetCS()
+        self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
+
+    def forward(self, inputs):
+        preds_cs = self.FlowNetCS(inputs)
+        x = _second_stage_input(inputs["input_a"], inputs["input_b"],
+                                preds_cs["flow"])
+        preds = self.FlowNetS(x)
+        preds["flow_cs"] = preds_cs["flow"]
+        return preds
+
+
+FUSION = [
+    # (name, kernel, stride, out_channels, activation)
+    ("fuse_conv0", 3, 1, 64, True),
+    ("fuse_conv1", 3, 2, 64, True),
+    ("fuse_conv1_1", 3, 1, 128, True),
+    ("fuse_conv2", 3, 2, 128, True),
+    ("fuse_conv2_1", 3, 1, 128, True),
+]
+
+FUSION_IN_CHANNELS = 11  # 3 + 2 + 2 + 1 + 1 + 1 + 1
+
+
+def _double_warp(input_b, flow_a, flow_b):
+    """Warp each sample's input_b by BOTH branch flows (one multi-flow
+    warp per sample); returns the two warped batches."""
+    pairs = [
+        stack_warp_multi(input_b[i:i + 1],
+                         torch.cat([flow_a[i:i + 1], flow_b[i:i + 1]]))
+        for i in range(input_b.shape[0])
+    ]
+    return (torch.cat([p[0:1] for p in pairs]),
+            torch.cat([p[1:2] for p in pairs]))
+
+
+class FlowNet2(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.FlowNetCSS = FlowNetCSS()
+        self.FlowNetSD = flownet_sd.FlowNetSD()
+        cin = FUSION_IN_CHANNELS
+        for name, k, stride, cout, act in FUSION:
+            self.add_module(name, common.Conv(k, cin, cout, stride, act))
+            cin = cout
+        self.predict_flow2 = common.predict_flow(128)
+        self.fuse_deconv1 = common.Deconv(128, 32)
+        self.fuse_upsample_flow2to1 = common.Deconv(2, 2, act=False)
+        concat1_ch = 128 + 32 + 2  # fuse_conv1_1 + fuse_deconv1 + upflow
+        self.fuse_interconv1 = common.Conv(3, concat1_ch, 32, act=False)
+        self.predict_flow1 = common.predict_flow(32)
+        self.fuse_deconv0 = common.Deconv(concat1_ch, 16)
+        self.fuse_upsample_flow1to0 = common.Deconv(2, 2, act=False)
+        concat0_ch = 64 + 16 + 2  # fuse_conv0 + fuse_deconv0 + upflow
+        self.fuse_interconv0 = common.Conv(3, concat0_ch, 16, act=False)
+        self.predict_flow0 = common.predict_flow(16)
+
+    def forward(self, inputs):
+        input_a = inputs["input_a"]
+        input_b = inputs["input_b"]
+        n, in_h, in_w, _ = input_a.shape
+        preds_css = self.FlowNetCSS(inputs)
+        preds_sd = self.FlowNetSD(inputs)
+        flow_css = preds_css["flow"]
+        flow_sd = preds_sd["flow"]
+
+        warped_css, warped_sd = _double_warp(input_b, flow_css, flow_sd)
+        err_css = common.channel_norm(input_a - warped_css)
+        err_sd = common.channel_norm(input_a - warped_sd)
+        mag_css = common.channel_norm(flow_css)
+        mag_sd = common.channel_norm(flow_sd)
+        x = torch.cat(
+            [
+                input_a,
+                flow_css * FLOW_SCALE,
+                flow_sd * FLOW_SCALE,
+                mag_css,
+                mag_sd,
+                err_css,
+                err_sd,
+            ],
+            dim=-1,
+        )
+        with common.f32_policy():
+            preds = self._fusion_head(common.nchw(x))
+        preds["flow"] = resize_bilinear_tf1(
+            preds["predict_flow0"] * 20.0, in_h, in_w
+        )
+        preds["flow_css"] = flow_css
+        preds["flow_sd"] = flow_sd
+        return preds
+
+    def _fusion_head(self, x):
+        """Fusion pyramid + refinement (fuse_conv* -> predict_flow2/1/0),
+        NCHW in, NHWC predictions out."""
+        acts = {}
+        for name, _, _, _, _ in FUSION:
+            x = getattr(self, name)(x)
+            acts[name] = x
+
+        preds = {}
+        flow2 = self.predict_flow2(x)
+        preds["predict_flow2"] = common.nhwc(flow2)
+
+        up_feat1 = self.fuse_deconv1(x)
+        up_flow1 = self.fuse_upsample_flow2to1(flow2)
+        concat1 = torch.cat([acts["fuse_conv1_1"], up_feat1, up_flow1], dim=1)
+        inter1 = self.fuse_interconv1(concat1)
+        flow1 = self.predict_flow1(inter1)
+        preds["predict_flow1"] = common.nhwc(flow1)
+
+        up_feat0 = self.fuse_deconv0(concat1)
+        up_flow0 = self.fuse_upsample_flow1to0(flow1)
+        concat0 = torch.cat([acts["fuse_conv0"], up_feat0, up_flow0], dim=1)
+        inter0 = self.fuse_interconv0(concat0)
+        flow0 = self.predict_flow0(inter0)
+        preds["predict_flow0"] = common.nhwc(flow0)
+        return preds

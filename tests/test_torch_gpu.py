@@ -1,0 +1,90 @@
+"""The torch port's CUDA kernels on the card.
+
+Every test here needs a CUDA device, is marked ``gpu`` and skips without
+one. The file imports no JAX, so it runs on a machine without it:
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+
+(``--noconftest``: tests/conftest.py sets up JAX for the other files.)
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from flownet2_tf_tpu_torch.models import flownet_c  # noqa: E402
+from flownet2_tf_tpu_torch.ops import correlation as tcorr  # noqa: E402
+from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel  # noqa: E402
+from flownet2_tf_tpu_torch.training import infer, warmstart  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize(
+    "shape,d,s2,dtype",
+    [
+        ((1, 56, 128, 256), 20, 2, torch.float32),  # FlowNet2 at 448x1024
+        ((1, 56, 128, 256), 20, 2, torch.bfloat16),
+        ((2, 8, 12, 64), 4, 1, torch.float32),  # off the TPU tiling
+        ((1, 12, 20, 96), 4, 2, torch.float32),
+        ((1, 5, 7, 33), 6, 3, torch.float32),  # D=5, C not a warp multiple
+        ((1, 4, 6, 40), 36, 2, torch.float32),  # D=37 > 32: two store groups
+    ],
+)
+def test_kernel_matches_plain_version(gen, shape, d, s2, dtype):
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    before = correlation_kernel.LAUNCHES
+    got = tcorr.correlation(a, b, 1, d, 1, s2, d)
+    assert correlation_kernel.LAUNCHES == before + 1
+    want = tcorr._correlation_oracle(a, b, 1, d, 1, s2, d)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    # the same (bf16-rounded) values summed in another f32 order
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_out_of_family_raises_on_cuda(gen):
+    a = torch.zeros(1, 8, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="CUDA kernel covers"):
+        tcorr.correlation(a, a, kernel_size=3, max_displacement=4,
+                          stride_1=1, stride_2=2, pad=4)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    a = torch.zeros(1, 8, 8, 16, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_kernel.correlation_cuda(a.transpose(1, 2), a, 4, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation_kernel.correlation_cuda(a.half(), a.half(), 4, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        correlation_kernel.correlation_cuda(a, a.cpu(), 4, 2)
+
+
+def test_backward_is_not_ported(gen):
+    a = torch.randn(1, 4, 4, 8, device="cuda", requires_grad=True)
+    out = correlation_kernel.correlation_cuda(a, a.detach(), 2, 1)
+    with pytest.raises(NotImplementedError, match="backward"):
+        out.sum().backward()
+
+
+def test_flownet_c_on_card_matches_cpu(gen):
+    model = flownet_c.FlowNetC()
+    tree = warmstart.random_jax_params(model, seed=0)
+    cpu = infer.load_model("c", tree, "cpu")
+    card = infer.load_model("c", tree, "cuda")
+    images = torch.rand((2, 1, 64, 128, 3), generator=gen, device="cuda")
+    before = correlation_kernel.LAUNCHES
+    got = infer.forward_flow(card, images[0], images[1])
+    assert correlation_kernel.LAUNCHES == before + 1
+    want = infer.forward_flow(cpu, images[0].cpu(), images[1].cpu())
+    scale = max(1.0, float(want.abs().mean()))
+    # tests/test_golden.py:96-99
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=5e-3 * scale)
