@@ -5,11 +5,12 @@ mirrors its counterpart's path and name (``ops/correlation.py``,
 ``models/stacks.py``, ``training/infer.py`` ...), so a reader can hold
 the two side by side. This package imports ``torch`` and never ``jax``.
 
-What runs on the card: cuDNN for the convs and deconvs, plain torch for
-the elementwise and gather ops, and one hand-written CUDA kernel for the
-FlowNetC correlation (``csrc/correlation.cu``), built with ``nvcc`` at
-first use (``ops/cuda/_build.py``). On the CPU every op takes its plain
-torch version.
+What runs on the card: cuDNN for the convs and deconvs (forward and
+backward), plain torch for the elementwise, gather, loss and optimizer
+ops, and hand-written CUDA kernels for the FlowNetC correlation, forward
+and backward (``csrc/correlation.cu``), built with ``nvcc`` at first use
+(``ops/cuda/_build.py``). On the CPU every op takes its plain torch
+version.
 
 Public functions keep the JAX package's NHWC layout for images, flows and
 cost volumes; the models run NCHW inside.

@@ -1,4 +1,5 @@
-"""Shared model substrate: conv blocks, channel norm and the f32 policy.
+"""Shared model substrate: conv blocks, channel norm, the f32 policy, the
+MSRA init and the endpoint-error loss primitives.
 
 Port of the plain path of ``flownet2_tf_tpu/models/common.py``. Layers are
 ``nn.Module``s holding ``weights`` (OIHW for convs, the
@@ -44,12 +45,46 @@ def check_divisible_by_64(h: int, w: int):
         )
 
 
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt whose derivative is 0.5 / sqrt(s) where s > 0 and exactly 0 at
+    s == 0 (the JAX package's ``_safe_sqrt``, trap C5): the stacked nets
+    hit exact zeros (warped == input bitwise, zero flows), where the bare
+    derivative is inf and would turn an unfrozen stack's weight grads into
+    inf/NaN. The forward stays a bare sqrt."""
+
+    @staticmethod
+    def forward(ctx, s):
+        y = torch.sqrt(s)
+        ctx.save_for_backward(s, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        s, y = ctx.saved_tensors
+        tiny = torch.finfo(y.dtype).tiny
+        dy = torch.where(s > 0, 0.5 / torch.clamp(y, min=tiny),
+                         torch.zeros_like(y))
+        return grad * dy
+
+
 def channel_norm(x):
     """Per-pixel L2 norm over the last (channel) axis of NHWC ``x``,
     keepdims -> (..., 1). Brightness error and flow magnitude of the
-    stacked nets. Forward only: the zero-gradient-at-0 rule of the JAX
-    package's ``_safe_sqrt`` comes with training."""
-    return torch.sqrt(torch.sum(torch.square(x), dim=-1, keepdim=True))
+    stacked nets; gradient guarded at exact zeros (``_SafeSqrt``)."""
+    return _SafeSqrt.apply(torch.sum(torch.square(x), dim=-1, keepdim=True))
+
+
+def average_endpoint_error(labels, predictions):
+    """sqrt(sum_c (pred - gt)^2 + 1e-12) summed over pixels, divided by
+    the batch: the multi-scale loss primitive (trap C6)."""
+    sq = torch.sum(torch.square(predictions.float() - labels.float()), dim=3)
+    return torch.sum(torch.sqrt(sq + 1e-12)) / labels.shape[0]
+
+
+def endpoint_error_mean(labels, predictions):
+    """Per-pixel mean EPE (a metric, not the loss)."""
+    sq = torch.sum(torch.square(predictions.float() - labels.float()), dim=-1)
+    return torch.mean(torch.sqrt(sq + 1e-12))
 
 
 @contextlib.contextmanager
@@ -92,6 +127,11 @@ class Conv(nn.Module):
         return w.transpose(3, 2, 0, 1)
 
     @staticmethod
+    def to_jax(w):
+        """OIHW -> HWIO."""
+        return w.transpose(2, 3, 1, 0)
+
+    @staticmethod
     def jax_shape(shape):
         o, i, kh, kw = shape
         return (kh, kw, i, o)
@@ -125,6 +165,11 @@ class Deconv(nn.Module):
         return w[::-1, ::-1].transpose(2, 3, 0, 1)
 
     @staticmethod
+    def to_jax(w):
+        """Flipped (in, out, kh, kw) -> forward-conv HWIO."""
+        return w.transpose(2, 3, 0, 1)[::-1, ::-1]
+
+    @staticmethod
     def jax_shape(shape):
         i, o, kh, kw = shape
         return (kh, kw, i, o)
@@ -133,6 +178,25 @@ class Deconv(nn.Module):
         y = F.conv_transpose2d(x, self.weights, self.biases, stride=2,
                                padding=1)
         return leaky_relu(y) if self.act else y
+
+
+def msra_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every Conv/Deconv of ``module`` the way the JAX package's
+    ``model.init`` does: weights MSRA, std sqrt(2 / fan_in) times a normal
+    truncated to +-2 (``fan_in = k * k * cin``), biases zero. The draws come
+    from ``generator`` (CPU), layer by layer in sorted scope order; the bits
+    differ from ``jax.random``, the distribution does not."""
+    layers = sorted((name, m) for name, m in module.named_modules()
+                    if isinstance(m, (Conv, Deconv)))
+    with torch.no_grad():
+        for _, layer in layers:
+            kh, kw, cin, _ = layer.jax_shape(tuple(layer.weights.shape))
+            w = torch.empty(layer.weights.shape)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
+            layer.weights.copy_(w * (2.0 / (kh * kw * cin)) ** 0.5)
+            layer.biases.zero_()
+    return module
 
 
 def predict_flow(cin: int) -> Conv:

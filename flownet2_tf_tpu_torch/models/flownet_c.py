@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from flownet2_tf_tpu_torch.models import common, flownet_s
+from flownet2_tf_tpu_torch.models.base import multiscale_loss
 from flownet2_tf_tpu_torch.ops.correlation import correlation
 
 NAME = "FlowNetC"
@@ -82,3 +83,8 @@ class FlowNetC(nn.Module):
                 x = getattr(self, name)(x)
                 acts[name] = x
             return flownet_s.decoder(self, acts, (in_h, in_w))
+
+
+def loss(flow_gt, predictions):
+    """Multi-scale average-EPE loss (the JAX package's ``flownet_c.loss``)."""
+    return multiscale_loss(flow_gt, predictions)

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from flownet2_tf_tpu_torch.models import common
+from flownet2_tf_tpu_torch.models.base import multiscale_loss
 from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 
 NAME = "FlowNetS"
@@ -104,3 +105,8 @@ class FlowNetS(nn.Module):
                 x = getattr(self, name)(x)
                 acts[name] = x
             return decoder(self, acts, (in_h, in_w))
+
+
+def loss(flow_gt, predictions):
+    """Multi-scale average-EPE loss (the JAX package's ``flownet_s.loss``)."""
+    return multiscale_loss(flow_gt, predictions)

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from flownet2_tf_tpu_torch.models import common
+from flownet2_tf_tpu_torch.models.base import multiscale_loss
 from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 
 NAME = "FlowNetSD"
@@ -90,3 +91,8 @@ class FlowNetSD(nn.Module):
                 preds["predict_flow2"] * 20.0, in_h, in_w
             )
             return preds
+
+
+def loss(flow_gt, predictions):
+    """Multi-scale average-EPE loss (the JAX package's ``flownet_sd.loss``)."""
+    return multiscale_loss(flow_gt, predictions)

@@ -1,9 +1,10 @@
-"""Model registry: CLI names -> model classes.
+"""Model registry: CLI names -> model classes, losses and frozen scopes.
 
-Port of ``flownet2_tf_tpu/models/registry.py``, with the same names and
-aliases. ``get_model(name)`` returns a :class:`ModelSpec`; ``build(device)``
-makes the ``nn.Module`` (weights zero until ``training/warmstart.py``
-loads them).
+Port of ``flownet2_tf_tpu/models/registry.py``, with the same names,
+aliases, losses and ``default_frozen`` scopes. ``get_model(name)`` returns
+a :class:`ModelSpec`; ``build(device)`` makes the ``nn.Module`` (weights
+zero until ``training/warmstart.py`` loads them or
+``models/common.py::msra_init_`` draws them).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import dataclasses
 
 from torch import nn
 
+from typing import Callable
+
 from flownet2_tf_tpu_torch.models import flownet_c, flownet_s, flownet_sd, stacks
 
 
@@ -19,18 +22,25 @@ from flownet2_tf_tpu_torch.models import flownet_c, flownet_s, flownet_sd, stack
 class ModelSpec:
     name: str
     cls: type
+    # loss(flow_gt, predictions) -> scalar data loss
+    loss: Callable
+    # top-level sub-modules (parameter scopes) frozen in stacked training
+    default_frozen: tuple = ()
 
     def build(self, device="cpu") -> nn.Module:
         return self.cls().to(device).eval()
 
 
 _REGISTRY = {
-    "s": ModelSpec("FlowNetS", flownet_s.FlowNetS),
-    "c": ModelSpec("FlowNetC", flownet_c.FlowNetC),
-    "cs": ModelSpec("FlowNetCS", stacks.FlowNetCS),
-    "css": ModelSpec("FlowNetCSS", stacks.FlowNetCSS),
-    "sd": ModelSpec("FlowNetSD", flownet_sd.FlowNetSD),
-    "2": ModelSpec("FlowNet2", stacks.FlowNet2),
+    "s": ModelSpec("FlowNetS", flownet_s.FlowNetS, flownet_s.loss),
+    "c": ModelSpec("FlowNetC", flownet_c.FlowNetC, flownet_c.loss),
+    "cs": ModelSpec("FlowNetCS", stacks.FlowNetCS, stacks.loss_cs,
+                    default_frozen=("FlowNetC",)),
+    "css": ModelSpec("FlowNetCSS", stacks.FlowNetCSS, stacks.loss_css,
+                     default_frozen=("FlowNetCS",)),
+    "sd": ModelSpec("FlowNetSD", flownet_sd.FlowNetSD, flownet_sd.loss),
+    "2": ModelSpec("FlowNet2", stacks.FlowNet2, stacks.loss_flownet2,
+                   default_frozen=("FlowNetCSS", "FlowNetSD")),
 }
 
 # aliases matching the reference package names

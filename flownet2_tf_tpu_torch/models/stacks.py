@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from flownet2_tf_tpu_torch.models import common, flownet_c, flownet_s, flownet_sd
-from flownet2_tf_tpu_torch.models.base import FLOW_SCALE
+from flownet2_tf_tpu_torch.models.base import FLOW_SCALE, multiscale_loss
 from flownet2_tf_tpu_torch.ops.flow_warp import stack_warp, stack_warp_multi
 from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 
@@ -58,6 +58,10 @@ class FlowNetCS(nn.Module):
         return preds
 
 
+def loss_cs(flow_gt, predictions):
+    return multiscale_loss(flow_gt, predictions)
+
+
 class FlowNetCSS(nn.Module):
     def __init__(self):
         super().__init__()
@@ -71,6 +75,10 @@ class FlowNetCSS(nn.Module):
         preds = self.FlowNetS(x)
         preds["flow_cs"] = preds_cs["flow"]
         return preds
+
+
+def loss_css(flow_gt, predictions):
+    return multiscale_loss(flow_gt, predictions)
 
 
 FUSION = [
@@ -179,3 +187,20 @@ class FlowNet2(nn.Module):
         flow0 = self.predict_flow0(inter0)
         preds["predict_flow0"] = common.nhwc(flow0)
         return preds
+
+
+# the fusion net's own heads (predict_flow2/1/0 at 1/4, 1/2, 1/1 of the
+# input), not the FlowNetS levels
+FUSION_LOSS_WEIGHTS = {
+    "predict_flow2": 0.32,
+    "predict_flow1": 0.08,
+    "predict_flow0": 0.02,
+}
+
+
+def loss_flownet2(flow_gt, predictions):
+    return multiscale_loss(
+        flow_gt,
+        {k: predictions[k] for k in FUSION_LOSS_WEIGHTS},
+        weights=FUSION_LOSS_WEIGHTS,
+    )

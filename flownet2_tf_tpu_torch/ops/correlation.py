@@ -15,7 +15,8 @@ Routing is by the tensor's device, with no knob:
 
 * the FlowNetC family (``k=1, s1=1, pad == d, d % s2 == 0``) goes to
   ``ops/cuda/correlation_kernel.py``, which launches the hand-written
-  CUDA kernel on a CUDA tensor and takes the plain version on a CPU one;
+  CUDA kernels (forward, and backward under autograd) on a CUDA tensor
+  and takes the plain version, with autograd through it, on a CPU one;
 * any other configuration takes the plain version on the CPU and
   raises on CUDA.
 """

@@ -1,14 +1,18 @@
 """Wrapper of the hand-written CUDA correlation kernel (``csrc/correlation.cu``).
 
 Replaces the TPU kernel
-``flownet2_tf_tpu/ops/pallas/correlation_kernel.py::_corr_row_kernel``
-(and the XLA einsum form the JAX package runs in its place). Forward
-only: the backward (da, db) is a training kernel still to port
-(ROADMAP "Queue 2", correlation backward).
+``flownet2_tf_tpu/ops/pallas/correlation_kernel.py::correlation_pallas``:
+its forward ``_corr_row_kernel`` (and the XLA einsum form the JAX package
+runs in its place) and its ``custom_vjp`` backward ``_bwd``, which
+differentiates the jnp oracle. Here ``_CorrelationFn`` is the
+``torch.autograd.Function``: the forward kernel saves ``a`` and ``b``,
+the backward kernels gather ``da`` and ``db`` from them and the f32
+cost-volume gradient, and return them in the input dtype like ``_bwd``.
 
 * A CPU tensor takes the plain version,
-  ``ops/correlation.py::_correlation_oracle``.
-* A CUDA tensor launches the kernel, or raises: there is no fallback.
+  ``ops/correlation.py::_correlation_oracle``, and autograd through it
+  (exactly what ``_bwd`` differentiates).
+* A CUDA tensor launches the kernels, or raises: there is no fallback.
 
 The supported family is the JAX package's ``pallas_correlation_supported``
 without its Mosaic tiling guards (W % 8, C % 128).
@@ -20,12 +24,14 @@ import ctypes
 
 import torch
 
-# Launches of the CUDA kernel in this process, counted where the wrapper
-# launches it and nowhere else.
+# Launches of the forward and of the backward CUDA kernels in this
+# process, counted where the wrapper launches them and nowhere else (one
+# backward launch runs the da and the db kernel).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_fn = None
+_fns: dict = {}
 
 
 def supported(kernel_size, max_displacement, stride_1, stride_2, pad) -> bool:
@@ -38,26 +44,27 @@ def supported(kernel_size, max_displacement, stride_1, stride_2, pad) -> bool:
     )
 
 
-def _entry():
-    global _fn
-    if _fn is None:
+# entry point -> number of pointer arguments before the 7 ints and stream
+_SIGNATURES = {"flownet2_correlation_fwd": 3, "flownet2_correlation_bwd": 5}
+
+
+def _entry(name):
+    fn = _fns.get(name)
+    if fn is None:
         from flownet2_tf_tpu_torch.ops.cuda import _build
 
-        fn = _build.load("correlation").flownet2_correlation_fwd
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
+        fn = getattr(_build.load("correlation"), name)
+        fn.argtypes = ([ctypes.c_void_p] * _SIGNATURES[name]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def build():
     """Compile (if stale) and load the kernel library; no launch."""
-    _entry()
+    for name in _SIGNATURES:
+        _entry(name)
 
 
 def _check(a, b):
@@ -91,7 +98,7 @@ def _launch(a, b, max_displacement, stride_2):
     out = torch.empty((n, h, w, d * d), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _entry()(
+        rc = _entry("flownet2_correlation_fwd")(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), n, h, w, c,
             max_displacement, stride_2, int(a.dtype == torch.bfloat16),
             stream,
@@ -102,17 +109,51 @@ def _launch(a, b, max_displacement, stride_2):
     return out
 
 
+def correlation_cuda_backward(grad, a, b, max_displacement, stride_2):
+    """Launch the backward kernels: (da, db) for the cost volume's
+    gradient ``grad`` (N, H, W, D**2), in the dtype of ``a`` and ``b``."""
+    global BWD_LAUNCHES
+    _check(a, b)
+    n, h, w, c = a.shape
+    r = max_displacement // stride_2
+    d = 2 * r + 1
+    if grad.device != a.device or tuple(grad.shape) != (n, h, w, d * d):
+        raise ValueError(
+            f"correlation backward: gradient {tuple(grad.shape)} on "
+            f"{grad.device}, expected {(n, h, w, d * d)} on {a.device}"
+        )
+    # the f32 gradient, like _bwd's g.astype(float32); contiguous NHWC
+    g = grad.to(torch.float32).contiguous()
+    da = torch.empty_like(a)
+    db = torch.empty_like(b)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _entry("flownet2_correlation_bwd")(
+            g.data_ptr(), a.data_ptr(), b.data_ptr(), da.data_ptr(),
+            db.data_ptr(), n, h, w, c, max_displacement, stride_2,
+            int(a.dtype == torch.bfloat16), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"correlation backward kernel launch failed: CUDA error {rc}")
+    BWD_LAUNCHES += 1
+    return da, db
+
+
 class _CorrelationFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, max_displacement, stride_2):
+        ctx.save_for_backward(a, b)
+        ctx.max_displacement = max_displacement
+        ctx.stride_2 = stride_2
         return _launch(a, b, max_displacement, stride_2)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the correlation backward kernel is not ported yet (ROADMAP "
-            "'Queue 2': correlation backward, needed to train FlowNetC)"
-        )
+        a, b = ctx.saved_tensors
+        da, db = correlation_cuda_backward(grad_out, a, b,
+                                           ctx.max_displacement, ctx.stride_2)
+        return da, db, None, None
 
 
 def correlation_cuda(a, b, max_displacement: int = 20, stride_2: int = 2):

@@ -1,0 +1,339 @@
+"""Training runtime on one device: the f32 train step, checkpoints,
+auto-resume, warm starts, frozen stages and metrics.
+
+Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
+``Trainer``) for one device. What maps to what:
+
+* the jitted pure step -> :meth:`Trainer.train_step`, eager autograd on a
+  :class:`TrainState` updated in place (model, Adam, step count), all of
+  it under ``models/common.py::f32_policy`` (TF32 off, backward included);
+* device-side augmentation inside the step -> ``data/augmentation.py`` on
+  the device, its draws from a ``torch.Generator`` seeded from
+  ``(seed + 17, step)``, so a resumed run draws what an uninterrupted one
+  would (the JAX package's ``fold_in``);
+* ``stop_grad_frozen`` / ``zero_frozen_grads`` -> frozen scopes switched
+  to ``requires_grad=False`` and kept out of Adam
+  (``training/optim.py::zero_frozen_grads``);
+* ``grad_accum`` -> a loop over equal microbatches whose gradients are
+  averaged; the batch is augmented once before the split (the JAX package
+  draws per microbatch; the distribution is the same);
+* orbax -> ``log_dir/checkpoints/<step>/`` holding ``params.npz`` (JAX
+  layout, flat '/' keys, read by both packages' ``load_params_tree``) and
+  ``optimizer.pt`` (Adam state and step). Saving is synchronous (the JAX
+  package saves asynchronously); keep-K and auto-resume from the newest
+  are the same, and so is the interrupt checkpoint in ``finally``.
+
+Not ported yet (ROADMAP): bf16 compute, ``remat``,
+``transfer_flow_dtype``, ``device_prefetch``, TensorBoard image
+summaries and data parallelism.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import shutil
+import time
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from flownet2_tf_tpu_torch.data import augmentation
+from flownet2_tf_tpu_torch.models.common import (
+    endpoint_error_mean,
+    f32_policy,
+    msra_init_,
+)
+from flownet2_tf_tpu_torch.models.registry import get_model
+from flownet2_tf_tpu_torch.training import optim
+from flownet2_tf_tpu_torch.training.infer import pad_to_multiple, resolve_device
+from flownet2_tf_tpu_torch.training.warmstart import (
+    PARAMS_FILE,
+    apply_warm_starts,
+    flatten,
+    latest_checkpoint,
+    load_jax_params,
+    load_params_tree,
+    to_jax_params,
+)
+from flownet2_tf_tpu_torch.utils.schedules import get_schedule, make_lr_schedule
+
+OPTIMIZER_FILE = "optimizer.pt"
+COMPUTE_DTYPES = ("float32",)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    model: str = "s"
+    schedule: Any = "long"  # name or schedule dict
+    log_dir: str = "./logs/flownet_s"
+    seed: int = 0
+    # the JAX package defaults to bfloat16; the port runs float32 only
+    # until the bf16 policy is ported (ROADMAP Queue 1 item 10)
+    compute_dtype: str = "float32"
+    augment: bool = True
+    frozen: Optional[Sequence[str]] = None  # None -> model default
+    max_steps: Optional[int] = None  # None -> schedule max_iter
+    log_every: int = 100
+    checkpoint_every: int = 2500
+    keep_checkpoints: int = 5
+    tensorboard: bool = True
+    # split each batch into N equal microbatches, gradients averaged: one
+    # update per batch, ~N-fold lower activation memory
+    grad_accum: int = 1
+    # periodic validation: every N steps the mean EPE of eval batches
+    eval_every: int = 0
+    eval_batches: int = 4
+    device: str = "cuda"
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The augmentation generator's seed at ``step``: a pure function of
+    ``(seed + 17, step)``."""
+    return (((seed + 17) << 32) + step) & 0xFFFF_FFFF_FFFF_FFFF
+
+
+class Trainer:
+    def __init__(self, config: TrainConfig):
+        self.config = config
+        self.spec = get_model(config.model)
+        self.schedule = (
+            get_schedule(config.schedule)
+            if isinstance(config.schedule, str)
+            else dict(config.schedule)
+        )
+        if str(config.compute_dtype) not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"compute_dtype {config.compute_dtype!r}: the torch port "
+                f"trains in {COMPUTE_DTYPES} only (the bf16 policy is not "
+                "ported yet)"
+            )
+        self.device = resolve_device(config.device)
+        self.frozen = tuple(
+            self.spec.default_frozen if config.frozen is None
+            else config.frozen
+        )
+        self.weight_decay = float(self.schedule.get("weight_decay", 0.0))
+        self.lr_fn = make_lr_schedule(self.schedule)
+        self._updating = False
+
+    # -- state ------------------------------------------------------------
+
+    def init_state(self) -> TrainState:
+        """MSRA-initialised model (``torch.Generator`` seeded by
+        ``config.seed``) on the device, frozen scopes frozen, Adam over
+        the rest, step 0."""
+        model = self.spec.build(self.device).train()
+        msra_init_(model, torch.Generator().manual_seed(self.config.seed))
+        optim.zero_frozen_grads(model, self.frozen)
+        trainable = [p for p in model.parameters() if p.requires_grad]
+        optimizer, _ = optim.make_optimizer(trainable, self.schedule)
+        return TrainState(model, optimizer, 0)
+
+    # -- checkpoints --------------------------------------------------------
+
+    def save(self, state: TrainState):
+        """Write ``log_dir/checkpoints/<step>/`` (written aside, then
+        renamed into place) and keep the newest ``keep_checkpoints``."""
+        root = os.path.join(self.config.log_dir, "checkpoints")
+        final = os.path.join(root, str(state.step))
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, PARAMS_FILE),
+                 **flatten(to_jax_params(state.model)))
+        torch.save({"step": state.step,
+                    "optimizer": state.optimizer.state_dict()},
+                   os.path.join(tmp, OPTIMIZER_FILE))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        steps = sorted(int(e) for e in os.listdir(root) if e.isdigit())
+        for old in steps[:-max(1, self.config.keep_checkpoints)]:
+            shutil.rmtree(os.path.join(root, str(old)))
+
+    def restore_or_init(self):
+        """Auto-resume from the newest checkpoint in log_dir, else init.
+        Returns ``(state, resumed)``."""
+        state = self.init_state()
+        latest = latest_checkpoint(self.config.log_dir)
+        if latest is None:
+            return state, False
+        load_jax_params(state.model, load_params_tree(latest))
+        saved = torch.load(os.path.join(latest, OPTIMIZER_FILE),
+                           map_location=self.device, weights_only=True)
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        return state, True
+
+    def warm_start(self, state: TrainState, checkpoints) -> TrainState:
+        """Load prior-stage checkpoints into sub-scopes: ``checkpoints`` is
+        ``{path: (src_scope, dst_scope)}`` or ``[(path, src, dst), ...]``
+        ('' selects the root), as in ``warmstart.apply_warm_starts``."""
+        tree = apply_warm_starts(to_jax_params(state.model), checkpoints)
+        load_jax_params(state.model, tree)
+        return state
+
+    # -- the step -----------------------------------------------------------
+
+    def _to_device(self, batch):
+        return tuple(
+            torch.as_tensor(np.asarray(batch[k])).to(self.device,
+                                                     torch.float32)
+            for k in ("image_a", "image_b", "flow")
+        )
+
+    def _loss(self, model, image_a, image_b, flow):
+        preds = model({"input_a": image_a, "input_b": image_b})
+        data_loss = self.spec.loss(flow, preds)
+        reg = optim.l2_regularization(model, self.frozen)
+        total = data_loss + self.weight_decay * reg
+        epe = endpoint_error_mean(flow, preds["flow"])
+        return total, data_loss, epe
+
+    def train_step(self, state: TrainState, batch, preprocess=None):
+        """One update on ``batch`` (numpy dict); returns the step's
+        metrics as 0-d device tensors (``lr`` a float), read at log time."""
+        cfg = self.config
+        accum = max(1, int(cfg.grad_accum))
+        image_a, image_b, flow = self._to_device(batch)
+        if image_a.shape[0] % accum:
+            raise ValueError(
+                f"grad_accum={accum} must divide the batch size "
+                f"({image_a.shape[0]}): each step runs {accum} equal "
+                "microbatches"
+            )
+        with f32_policy():
+            if cfg.augment and preprocess is not None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(step_seed(cfg.seed, state.step))
+                image_a, image_b, flow = augmentation.augment_batch(
+                    gen, image_a, image_b, flow, preprocess)
+            state.optimizer.zero_grad(set_to_none=True)
+            sums = torch.zeros(3, device=self.device)
+            for a, b, f in zip(image_a.chunk(accum), image_b.chunk(accum),
+                               flow.chunk(accum)):
+                total, data_loss, epe = self._loss(state.model, a, b, f)
+                (total / accum).backward()
+                sums += torch.stack([total, data_loss, epe]).detach()
+            grads = [p.grad for group in state.optimizer.param_groups
+                     for p in group["params"] if p.grad is not None]
+            grad_norm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            lr = self.lr_fn(state.step)
+            optim.set_lr(state.optimizer, lr)
+            self._updating = True
+            state.optimizer.step()
+            self._updating = False
+        state.step += 1
+        sums = sums / accum
+        return {"loss": sums[0], "data_loss": sums[1], "epe": sums[2],
+                "grad_norm": grad_norm, "lr": lr}
+
+    # -- the loop -----------------------------------------------------------
+
+    def evaluate(self, state: TrainState, eval_loader, max_batches=None):
+        """Mean full-res EPE over validation batches (edge-padded to %64
+        and cropped back, like inference)."""
+        max_batches = max_batches or self.config.eval_batches
+        total, n = 0.0, 0
+        batches = eval_loader.batches(epochs=1)
+        try:
+            with torch.no_grad(), f32_policy():
+                for batch in batches:
+                    image_a, image_b, flow = self._to_device(batch)
+                    a, h, w = pad_to_multiple(image_a)
+                    b, _, _ = pad_to_multiple(image_b)
+                    pred = state.model({"input_a": a, "input_b": b})["flow"]
+                    total += float(endpoint_error_mean(
+                        flow, pred[:, :h, :w, :]))
+                    n += 1
+                    if n >= max_batches:
+                        break
+        finally:
+            batches.close()
+        if n == 0:
+            print("warning: validation loader yielded no batches "
+                  "(split smaller than batch size?)", flush=True)
+            return None
+        return total / n
+
+    def fit(self, loader, preprocess=None, max_steps=None, state=None,
+            warm_start_checkpoints=None, eval_loader=None) -> TrainState:
+        cfg = self.config
+        if max_steps is None:
+            max_steps = (cfg.max_steps if cfg.max_steps is not None
+                         else int(self.schedule["max_iter"]))
+        saved_step = None
+        if state is None:
+            state, resumed = self.restore_or_init()
+            if resumed:
+                saved_step = state.step
+            elif warm_start_checkpoints:
+                state = self.warm_start(state, warm_start_checkpoints)
+
+        writer = None
+        if cfg.tensorboard:
+            from flownet2_tf_tpu_torch.utils.tensorboard import SummaryWriter
+
+            writer = SummaryWriter(cfg.log_dir)
+        # Sample-exact resume: restart the stream at the batch the
+        # interrupted run would have consumed next.
+        batches = loader.batches(start_batch=state.step)
+        t_last = time.perf_counter()
+        examples_since = 0
+        try:
+            for batch in batches:
+                if state.step >= max_steps:
+                    break
+                metrics = self.train_step(state, batch, preprocess)
+                step = state.step
+                examples_since += batch["image_a"].shape[0]
+
+                if step % cfg.log_every == 0 or step == max_steps:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    now = time.perf_counter()
+                    metrics["examples_per_sec"] = examples_since / max(
+                        now - t_last, 1e-9)
+                    t_last, examples_since = now, 0
+                    print(json.dumps({"step": step, **{
+                        k: round(v, 6) for k, v in metrics.items()}}),
+                        flush=True)
+                    if writer:
+                        writer.scalars(metrics, step)
+                        writer.flush()
+                if (eval_loader is not None and cfg.eval_every
+                        and step % cfg.eval_every == 0):
+                    val_epe = self.evaluate(state, eval_loader)
+                    if val_epe is not None:
+                        print(json.dumps({"step": step,
+                                          "val_epe": round(val_epe, 6)}),
+                              flush=True)
+                        if writer:
+                            writer.scalar("val_epe", val_epe, step)
+                            writer.flush()
+                if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                    self.save(state)
+                    saved_step = step
+        finally:
+            batches.close()
+            if self._updating:
+                # an exception inside optimizer.step() may have left the
+                # parameters half updated: keep the last good checkpoint
+                print("warning: interrupt checkpoint skipped - the failing "
+                      "step was inside the optimizer update; the newest "
+                      "checkpoint on disk is unchanged", flush=True)
+            elif state.step != saved_step:
+                self.save(state)
+            if writer:
+                writer.close()
+        return state

@@ -1,8 +1,10 @@
-"""Weights across the two packages: JAX-layout parameter trees <-> modules.
+"""Weights across the two packages: JAX-layout parameter trees <-> modules,
+and stage warm-starting.
 
-Port of the ``.npz`` half of ``flownet2_tf_tpu/training/warmstart.py``
-(``flatten``, ``unflatten``, ``load_params_tree``) plus the bridge
-:func:`load_jax_params`. A tree is the JAX package's nested dict of numpy
+Port of ``flownet2_tf_tpu/training/warmstart.py`` (``flatten``,
+``unflatten``, ``load_params_tree``, ``get_scope``, ``set_scope``,
+``apply_warm_starts``) plus the two-way bridge :func:`load_jax_params` /
+:func:`to_jax_params`. A tree is the JAX package's nested dict of numpy
 arrays, keyed by slim scope paths
 (``FlowNetCSS/FlowNetCS/FlowNetC/conv1/weights``); the port's module
 paths mirror those scopes (``FlowNetCSS.FlowNetCS.FlowNetC.conv1``), so the
@@ -13,11 +15,15 @@ mapping is by name, plus a layout change per layer kind:
   with pad 2 -> the spatially flipped ``conv_transpose2d`` layout
   (in, out, kh, kw) (ROADMAP trap C2).
 
-Orbax run directories are not read yet.
+Sources are a ``.npz`` of flat '/'-joined paths (the JAX package's
+converter and ``export``, and the port's own checkpoints), or a port run
+directory (``training/loop.py``), whose newest checkpoint is read. The
+JAX package's orbax run directories are not read.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from typing import Dict
@@ -53,18 +59,99 @@ def unflatten(flat: Dict[str, np.ndarray]):
     return tree
 
 
-def load_params_tree(path):
-    """Load a parameter tree from a ``.npz`` of flattened '/'-joined paths
-    (what the JAX package's converter and ``export`` write)."""
+PARAMS_FILE = "params.npz"
+
+
+def latest_checkpoint(path):
+    """The newest ``<step>/`` directory under a port run directory (or its
+    ``checkpoints/``), or None."""
     path = os.fspath(path)
-    if not path.endswith(".npz"):
-        raise ValueError(
-            f"{path}: only .npz parameter files are supported by the torch "
-            "port (orbax run directories: export them to .npz with the JAX "
-            "package's `cli export`)"
-        )
+    if os.path.isdir(os.path.join(path, "checkpoints")):
+        path = os.path.join(path, "checkpoints")
+    if not os.path.isdir(path):
+        return None
+    steps = [int(e) for e in os.listdir(path)
+             if e.isdigit()
+             and os.path.isfile(os.path.join(path, e, PARAMS_FILE))]
+    return os.path.join(path, str(max(steps))) if steps else None
+
+
+def load_params_tree(path):
+    """Load a parameter tree from a ``.npz`` of flattened '/'-joined paths,
+    or from a port run directory (its newest ``<step>/params.npz``)."""
+    path = os.fspath(path)
+    if os.path.isfile(os.path.join(path, PARAMS_FILE)):
+        path = os.path.join(path, PARAMS_FILE)
+    elif not path.endswith(".npz"):
+        step_dir = latest_checkpoint(path)
+        if step_dir is None:
+            raise ValueError(
+                f"{path}: only .npz parameter files and run directories of "
+                "the torch port are supported (orbax run directories: "
+                "export them to .npz with the JAX package's `cli export`)"
+            )
+        path = os.path.join(step_dir, PARAMS_FILE)
     with np.load(path) as data:
         return unflatten({k: data[k] for k in data.files})
+
+
+def get_scope(tree, scope: str):
+    """'' -> whole tree; 'A/B' -> tree['A']['B']."""
+    if not scope:
+        return tree
+    node = tree
+    for part in scope.split("/"):
+        node = node[part]
+    return node
+
+
+def set_scope(tree, scope: str, value):
+    if not scope:
+        return value
+    parts = scope.split("/")
+    node = tree
+    for part in parts[:-1]:
+        node = node[part]
+    node[parts[-1]] = value
+    return tree
+
+
+def _check_compatible(dst, src, scope):
+    dst_flat = flatten(dst)
+    src_flat = flatten(src)
+    missing = sorted(set(dst_flat) - set(src_flat))
+    extra = sorted(set(src_flat) - set(dst_flat))
+    if missing or extra:
+        raise ValueError(
+            f"warm-start scope {scope!r} mismatch: missing {missing[:5]} "
+            f"extra {extra[:5]} (of {len(missing)}/{len(extra)})"
+        )
+    for k in dst_flat:
+        if tuple(dst_flat[k].shape) != tuple(src_flat[k].shape):
+            raise ValueError(
+                f"warm-start shape mismatch at {scope}/{k}: "
+                f"{src_flat[k].shape} vs expected {dst_flat[k].shape}"
+            )
+
+
+def apply_warm_starts(params, checkpoints):
+    """Splice prior-stage checkpoints into a parameter tree.
+
+    ``checkpoints``: the reference-style dict {path: (src_scope,
+    dst_scope)}, or an iterable of (path, src_scope, dst_scope) tuples,
+    which can splice several sub-scopes out of one checkpoint. Key sets
+    and shapes are checked. Returns a new tree.
+    """
+    if isinstance(checkpoints, dict):
+        entries = [(p, s, d) for p, (s, d) in checkpoints.items()]
+    else:
+        entries = [tuple(e) for e in checkpoints]
+    params = copy.deepcopy(params)
+    for path, src_scope, dst_scope in entries:
+        sub = get_scope(load_params_tree(path), src_scope)
+        _check_compatible(get_scope(params, dst_scope), sub, dst_scope)
+        params = set_scope(params, dst_scope, sub)
+    return params
 
 
 def _layers(module: nn.Module):
@@ -144,3 +231,17 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
             layer.biases.copy_(torch.from_numpy(
                 np.asarray(flat[_key(scope, "biases")])))
     return module
+
+
+def to_jax_params(module: nn.Module):
+    """``module``'s parameters as a JAX-layout tree of f32 numpy arrays
+    (the inverse of :func:`load_jax_params`): conv weights OIHW -> HWIO,
+    deconv weights unflipped back to forward-conv HWIO (trap C2)."""
+    flat = {}
+    for scope, layer in _layers(module):
+        # copies: on the CPU .numpy() would alias the live parameters
+        w = layer.weights.detach().float().cpu().numpy()
+        flat[_key(scope, "weights")] = np.array(layer.to_jax(w), order="C")
+        flat[_key(scope, "biases")] = np.array(
+            layer.biases.detach().float().cpu().numpy())
+    return unflatten(flat)

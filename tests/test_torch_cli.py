@@ -63,6 +63,11 @@ def test_port_imports_no_jax():
         "import flownet2_tf_tpu_torch.training.infer\n"
         "import flownet2_tf_tpu_torch.models.stacks\n"
         "import flownet2_tf_tpu_torch.ops.cuda.correlation_kernel\n"
+        "import flownet2_tf_tpu_torch.training.loop\n"
+        "import flownet2_tf_tpu_torch.data.loader\n"
+        "import flownet2_tf_tpu_torch.data.augmentation\n"
+        "import flownet2_tf_tpu_torch.data.dataset_configs\n"
+        "import flownet2_tf_tpu_torch.utils.tensorboard\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flownet2_tf_tpu'))\n"
         "assert not bad, bad\n"

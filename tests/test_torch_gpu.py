@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from flownet2_tf_tpu_torch.models import flownet_c  # noqa: E402
+from flownet2_tf_tpu_torch.models import common, flownet_c  # noqa: E402
 from flownet2_tf_tpu_torch.ops import correlation as tcorr  # noqa: E402
 from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel  # noqa: E402
 from flownet2_tf_tpu_torch.training import infer, warmstart  # noqa: E402
@@ -68,11 +68,79 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
         correlation_kernel.correlation_cuda(a, a.cpu(), 4, 2)
 
 
-def test_backward_is_not_ported(gen):
-    a = torch.randn(1, 4, 4, 8, device="cuda", requires_grad=True)
-    out = correlation_kernel.correlation_cuda(a, a.detach(), 2, 1)
-    with pytest.raises(NotImplementedError, match="backward"):
-        out.sum().backward()
+def _plain_grads(a, b, g, d, s2):
+    x, y = a.detach().requires_grad_(), b.detach().requires_grad_()
+    out = tcorr._correlation_oracle(x, y, 1, d, 1, s2, d)
+    return torch.autograd.grad(out, (x, y), g)
+
+
+@pytest.mark.parametrize(
+    "shape,d,s2,dtype",
+    [
+        ((8, 40, 56, 256), 20, 2, torch.float32),  # FlowNetC conv3, chairs b8
+        ((8, 40, 56, 256), 20, 2, torch.bfloat16),
+        ((2, 8, 12, 64), 4, 1, torch.float32),  # off the TPU tiling
+        ((1, 12, 20, 96), 4, 2, torch.float32),
+        ((1, 5, 7, 33), 6, 3, torch.float32),  # C not a warp multiple
+        ((1, 4, 6, 300), 36, 2, torch.float32),  # D=37 > 32, C > 256
+        ((1, 9, 9, 40), 22, 1, torch.float32),  # D*D=2025: staged in chunks
+    ],
+)
+def test_backward_kernel_matches_plain_version(gen, shape, d, s2, dtype):
+    a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    dd = (2 * (d // s2) + 1) ** 2
+    g = torch.randn(shape[:3] + (dd,), generator=gen, device="cuda")
+    x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+    before = correlation_kernel.BWD_LAUNCHES
+    tcorr.correlation(x, y, 1, d, 1, s2, d).backward(g)
+    assert correlation_kernel.BWD_LAUNCHES == before + 1
+    again = correlation_kernel.correlation_cuda_backward(g, a, b, d, s2)
+    want = _plain_grads(a, b, g, d, s2)
+    torch.cuda.synchronize()
+    # f32: sums in another order; bf16: both round an f32 sum once
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2.0 ** -7, atol=1e-5))
+    for got, rerun, ref in zip((x.grad, y.grad), again, want):
+        assert got.dtype == dtype and got.shape == a.shape
+        assert torch.equal(got, rerun)  # gathers, no atomics: bitwise
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    a = torch.zeros(1, 8, 8, 16, device="cuda")
+    g = torch.zeros(1, 8, 8, 25, device="cuda")
+    with pytest.raises(ValueError, match="gradient"):
+        correlation_kernel.correlation_cuda_backward(g[..., :24], a, a, 4, 2)
+    with pytest.raises(ValueError, match="gradient"):
+        correlation_kernel.correlation_cuda_backward(g.cpu(), a, a, 4, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        correlation_kernel.correlation_cuda_backward(
+            g, a.transpose(1, 2), a, 4, 2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        correlation_kernel.correlation_cuda_backward(g, a.half(), a.half(),
+                                                     4, 2)
+
+
+def test_flownet_c_loss_gradient_on_card_matches_cpu(gen):
+    """One FlowNetC multi-scale loss gradient, card vs CPU, same weights:
+    relative L2 error per leaf <= 1e-3 (f32, TF32 off; cuDNN's backward
+    algorithms sum in other orders)."""
+    model = flownet_c.FlowNetC()
+    tree = warmstart.random_jax_params(model, seed=0)
+    images = torch.rand((2, 2, 64, 128, 3), generator=gen, device="cuda")
+    flow = torch.randn((2, 64, 128, 2), generator=gen, device="cuda") * 3
+    grads = {}
+    for device in ("cuda", "cpu"):
+        m = infer.load_model("c", tree, device).train()
+        inputs = {"input_a": images[0].to(device),
+                  "input_b": images[1].to(device)}
+        with common.f32_policy():
+            flownet_c.loss(flow.to(device), m(inputs)).backward()
+        grads[device] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    for k, want in grads["cpu"].items():
+        err = float((grads["cuda"][k] - want).norm() / want.norm())
+        assert err <= 1e-3, (k, err)
 
 
 def test_flownet_c_on_card_matches_cpu(gen):
