@@ -13,13 +13,20 @@ weights:
   version; FlowNet2 f32 through ``cli test`` on the bundled sample pair,
   held against the plain CPU path; FlowNet2 timed at 448x1024;
 * phases 4-6, training: the correlation backward kernel against autograd
-  of the plain version; FlowNetC trained 20 steps through ``cli train`` at
-  the FlyingChairs crop 320x448, batch 8, then resumed, then a FlowNetCS
-  warm-started from it with FlowNetC frozen; the FlowNetC train step timed.
+  of the plain version; FlowNetC trained 20 steps in f32 through ``cli
+  train`` at the FlyingChairs crop 320x448, batch 8, then resumed, then a
+  FlowNetCS warm-started from it with FlowNetC frozen; the FlowNetC f32
+  train step timed;
+* phases 7-9, the bf16 policy: FlowNet2 through ``cli test --compute_dtype
+  bfloat16``, held against the plain CPU path; FlowNet2 bf16 timed at
+  448x1024, batch 1 and 8; phase 5's training path again at ``cli
+  train``'s bf16 default, and the bf16 FlowNetC train step timed. The
+  correlation kernels take bf16 features there.
 
 Each path's kernel launch counts are set to 0 just before it and read just
-after. Every phase raises on failure; the exit code is then non-zero and
-no result line is printed.
+after, the bf16 paths' by the dtype of the features the kernels took.
+Every phase raises on failure; the exit code is then non-zero and no
+result line is printed.
 
 The last two lines of stdout are one JSON object with each kernel's
 numbers, then ``{"ok": true, "device": {...}}``. It exits non-zero without
@@ -51,6 +58,9 @@ KERNEL_RTOL = KERNEL_ATOL = 1e-5
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-5
 # the CUDA and CPU FlowNet2 flows: tests/test_golden.py:96-99
 FLOW_RTOL, FLOW_ATOL = 1e-3, 5e-3
+# the bf16 card flow's mean EPE to the f32 CPU flow, against the bf16 CPU
+# flow's: the card rounds in other places (cuDNN's sums, fused biases)
+BF16_EPE_RATIO = 1.5
 
 CORR_SOURCE = "flownet2_tf_tpu_torch/csrc/correlation.cu"
 CORR_REPLACES = "flownet2_tf_tpu/ops/pallas/correlation_kernel.py:53"
@@ -64,6 +74,25 @@ TRAIN_STEPS, RESUME_STEPS = 20, 25
 
 def log(msg):
     print(msg, flush=True)
+
+
+# correlation launches over every path run (phases 2, 5, 7, 9), by
+# direction and input dtype
+PATH_LAUNCHES = {"fwd": {"float32": 0, "bfloat16": 0},
+                 "bwd": {"float32": 0, "bfloat16": 0}}
+
+
+def path_counts():
+    """The launch counts since the last reset, added to PATH_LAUNCHES;
+    returns them."""
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+
+    counts = {"fwd": dict(ck.LAUNCHES_BY_DTYPE),
+              "bwd": dict(ck.BWD_LAUNCHES_BY_DTYPE)}
+    for way, by_dtype in counts.items():
+        for dtype, n in by_dtype.items():
+            PATH_LAUNCHES[way][dtype] += n
+    return counts
 
 
 def cuda_time_ms(fn, runs, warmup=3):
@@ -176,86 +205,123 @@ def _jax_layout_npz(model, path):
     return tree
 
 
+def _cli_test(ckpt, out_dir, dtype):
+    """``cli test --model 2`` on the card at ``dtype`` on the bundled pair,
+    between a reset and a read of the launch counts; returns the .flo."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    correlation_kernel.reset_launch_counts()
+    rc = cli.main(["test", "--model", "2", "--device", "cuda",
+                   "--compute_dtype", dtype, "--ckpt", ckpt,
+                   "--input_a", os.path.join(SAMPLES, "0img0.ppm"),
+                   "--input_b", os.path.join(SAMPLES, "0img1.ppm"),
+                   "--out", out_dir])
+    counts = path_counts()
+    if rc != 0:
+        raise AssertionError(f"cli test --compute_dtype {dtype} returned {rc}")
+    flow = flowlib.read_flow(os.path.join(out_dir, "0img0_flow.flo"))
+    if flow.shape != (192, 256, 2) or not np.isfinite(flow).all():
+        raise AssertionError(f"bad .flo: shape {flow.shape}")
+    return flow, counts
+
+
+def _check_counts(counts, fwd, bwd, dtype, what):
+    """Exactly ``fwd`` forward and ``bwd`` backward launches, all of them
+    on ``dtype`` features."""
+    want = {"fwd": fwd, "bwd": bwd}
+    for way, n in want.items():
+        if counts[way][dtype] != n or sum(counts[way].values()) != n:
+            raise AssertionError(
+                f"{what}: expected {fwd} forward and {bwd} backward "
+                f"correlation launches on {dtype} features, got {counts}")
+
+
+def _epe(a, b):
+    import numpy as np
+
+    return float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+
+
 def phase2_main_path(tmp):
     """FlowNet2 through the port's CLI on the card, held against the same
-    weights run plain on the CPU."""
+    weights run plain on the CPU. Returns the weights, their .npz and the
+    CPU flow."""
     import numpy as np
     import torch
 
-    from flownet2_tf_tpu_torch import cli
     from flownet2_tf_tpu_torch.models.registry import get_model
-    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
     from flownet2_tf_tpu_torch.training import infer
-    from flownet2_tf_tpu_torch.utils import flowlib
     from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
 
     ckpt = os.path.join(tmp, "flownet2_seed0.npz")
     tree = _jax_layout_npz(get_model("2").build("cpu"), ckpt)
-    out_dir = os.path.join(tmp, "out")
-    img_a = os.path.join(SAMPLES, "0img0.ppm")
-    img_b = os.path.join(SAMPLES, "0img1.ppm")
+    flow_cuda, counts = _cli_test(ckpt, os.path.join(tmp, "out"), "float32")
+    log(f"phase 2: cli test --model 2 --device cuda: correlation launches "
+        f"in one FlowNet2 forward {counts}")
+    _check_counts(counts, 1, 0, "float32", "phase 2")
 
-    correlation_kernel.LAUNCHES = correlation_kernel.BWD_LAUNCHES = 0
-    rc = cli.main(["test", "--model", "2", "--device", "cuda",
-                   "--ckpt", ckpt, "--input_a", img_a, "--input_b", img_b,
-                   "--out", out_dir])
-    launches = correlation_kernel.LAUNCHES
-    bwd = correlation_kernel.BWD_LAUNCHES
-    if rc != 0:
-        raise AssertionError(f"cli test returned {rc}")
-    log(f"phase 2: cli test --model 2 --device cuda: {launches} correlation "
-        f"kernel launch(es) in one FlowNet2 forward, {bwd} backward")
-    if launches != 1 or bwd != 0:
-        raise AssertionError(
-            f"expected 1 correlation launch per FlowNet2 forward and no "
-            f"backward, got {launches} / {bwd}")
-    flow_cuda = flowlib.read_flow(os.path.join(out_dir, "0img0_flow.flo"))
-    if flow_cuda.shape != (192, 256, 2) or not np.isfinite(flow_cuda).all():
-        raise AssertionError(f"bad .flo: shape {flow_cuda.shape}")
-
-    a, b = load_image_pair(img_a, img_b)
+    a, b = load_image_pair(os.path.join(SAMPLES, "0img0.ppm"),
+                           os.path.join(SAMPLES, "0img1.ppm"))
     flow_cpu = infer.infer_flow("2", tree, a, b, device="cpu")
     scale = max(1.0, float(np.abs(flow_cpu).mean()))
-    epe = float(np.sqrt(((flow_cuda - flow_cpu) ** 2).sum(-1)).mean())
     err = float(np.abs(flow_cuda - flow_cpu).max())
-    log(f"phase 2: CUDA vs CPU flow: mean EPE {epe:.3e} px, max abs err "
-        f"{err:.3e}, mean |flow| {float(np.abs(flow_cpu).mean()):.3f} "
-        f"(rtol {FLOW_RTOL}, atol {FLOW_ATOL} x {scale:.3f})")
+    log(f"phase 2: CUDA vs CPU flow: mean EPE {_epe(flow_cuda, flow_cpu):.3e} "
+        f"px, max abs err {err:.3e}, mean |flow| "
+        f"{float(np.abs(flow_cpu).mean()):.3f} (rtol {FLOW_RTOL}, atol "
+        f"{FLOW_ATOL} x {scale:.3f})")
     np.testing.assert_allclose(flow_cuda, flow_cpu, rtol=FLOW_RTOL,
                                atol=FLOW_ATOL * scale)
     torch.cuda.synchronize()
-    return tree, launches
+    return tree, ckpt, flow_cpu
 
 
-def phase3_card_numbers(tree):
-    """FlowNet2 448x1024 b1, f32 exact path, TF32 off, on the card."""
+def inference_numbers(phase, tree, dtype, batches):
+    """FlowNet2 448x1024 on the card at ``dtype`` (f32: TF32 off; bf16:
+    the feature layers pre-cast, as ``cli test`` runs it), timed per
+    batch size."""
     import torch
 
+    from flownet2_tf_tpu_torch.models import common
     from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
     from flownet2_tf_tpu_torch.training import infer
 
+    cd = common.compute_dtype_of(dtype)
     model = infer.load_model("2", tree, "cuda")
+    if cd == torch.bfloat16:
+        common.cast_params_for_inference(model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    inputs = {k: torch.rand((1, 448, 1024, 3), generator=gen, device="cuda")
-              for k in ("input_a", "input_b")}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    before = correlation_kernel.LAUNCHES
-    # each model forward runs under models/common.py::f32_policy (no TF32)
-    with torch.inference_mode():
-        times = cuda_time_ms(lambda: model(inputs), runs=10, warmup=3)
-        flow = model(inputs)["flow"]
-    torch.cuda.synchronize()
-    if flow.shape != (1, 448, 1024, 2) or not torch.isfinite(flow).all():
-        raise AssertionError(f"bad 448x1024 flow {tuple(flow.shape)}")
-    if correlation_kernel.LAUNCHES - before != 14:
-        raise AssertionError("448x1024 forwards did not all launch the kernel")
-    peak = torch.cuda.max_memory_allocated()
-    med = statistics.median(times)
-    log(f"phase 3: FlowNet2 448x1024 b1 f32 (TF32 off): median "
-        f"{med:.3f} ms/pair over {len(times)} runs (min {min(times):.3f}, "
-        f"max {max(times):.3f}), {1000.0 / med:.2f} pairs/s, peak memory "
-        f"{peak / 2**20:.1f} MiB")
+    note = " (TF32 off)" if cd == torch.float32 else ""
+    for batch in batches:
+        inputs = {k: torch.rand((batch, 448, 1024, 3), generator=gen,
+                                device="cuda")
+                  for k in ("input_a", "input_b")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = correlation_kernel.LAUNCHES_BY_DTYPE[dtype]
+        with torch.inference_mode():
+            times = cuda_time_ms(lambda: model(inputs, cd), runs=10,
+                                 warmup=3)
+            flow = model(inputs, cd)["flow"]
+        torch.cuda.synchronize()
+        if (flow.shape != (batch, 448, 1024, 2) or flow.dtype != torch.float32
+                or not torch.isfinite(flow).all()):
+            raise AssertionError(f"bad 448x1024 flow {tuple(flow.shape)} "
+                                 f"{flow.dtype}")
+        if correlation_kernel.LAUNCHES_BY_DTYPE[dtype] - before != 14:
+            raise AssertionError(
+                f"448x1024 forwards did not all launch the kernel on "
+                f"{dtype} features")
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        log(f"phase {phase}: FlowNet2 448x1024 b{batch} {dtype}{note}: "
+            f"median {med:.3f} ms per batch, {med / batch:.3f} ms/pair over "
+            f"{len(times)} runs (min {min(times):.3f}, max "
+            f"{max(times):.3f}), {1000.0 * batch / med:.2f} pairs/s, peak "
+            f"memory {peak / 2**20:.1f} MiB")
 
 
 def phase4_backward_vs_plain():
@@ -349,9 +415,10 @@ def _train(argv):
             if line.startswith("{")]
 
 
-def phase5_training_path(tmp):
-    """FlowNetC trained through the port's CLI on the card; resumed; then
-    a FlowNetCS warm-started from it with FlowNetC frozen."""
+def training_path(phase, tmp, dtype):
+    """FlowNetC trained through the port's CLI on the card at ``dtype``
+    (bf16 by leaving ``--compute_dtype`` at its default); resumed; then a
+    FlowNetCS warm-started from it with FlowNetC frozen."""
     import numpy as np
 
     from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
@@ -362,14 +429,16 @@ def phase5_training_path(tmp):
               "--synthetic_width", str(TRAIN_W), "--batch_size",
               str(TRAIN_BATCH), "--schedule", "short", "--log_every", "1",
               "--checkpoint_every", "10", "--device", "cuda"]
+    if dtype == "float32":
+        common += ["--compute_dtype", "float32"]
 
-    correlation_kernel.LAUNCHES = correlation_kernel.BWD_LAUNCHES = 0
+    correlation_kernel.reset_launch_counts()
     recs = _train(["--model", "c", "--log_dir", c_dir,
                    "--max_steps", str(TRAIN_STEPS), *common])
-    fwd, bwd = correlation_kernel.LAUNCHES, correlation_kernel.BWD_LAUNCHES
+    counts = path_counts()
     losses = [r["loss"] for r in recs]
-    log(f"phase 5: cli train --model c, {len(recs)} steps: correlation "
-        f"forward {fwd}, backward {bwd} launches; loss first 4 "
+    log(f"phase {phase}: cli train --model c ({dtype}), {len(recs)} steps: "
+        f"correlation launches {counts}; loss first 4 "
         f"{[round(x, 4) for x in losses[:4]]}, last 4 "
         f"{[round(x, 4) for x in losses[-4:]]}")
     if [r["step"] for r in recs] != list(range(1, TRAIN_STEPS + 1)):
@@ -378,61 +447,61 @@ def phase5_training_path(tmp):
         raise AssertionError(f"non-finite loss in {losses}")
     if not np.mean(losses[-4:]) < np.mean(losses[:4]):
         raise AssertionError(f"loss did not decrease: {losses}")
-    if bwd != TRAIN_STEPS or fwd != TRAIN_STEPS:
-        raise AssertionError(
-            f"expected {TRAIN_STEPS} forward and backward correlation "
-            f"launches, got {fwd} / {bwd}")
+    _check_counts(counts, TRAIN_STEPS, TRAIN_STEPS, dtype,
+                  f"phase {phase} C training")
 
-    correlation_kernel.LAUNCHES = correlation_kernel.BWD_LAUNCHES = 0
+    correlation_kernel.reset_launch_counts()
     more = _train(["--model", "c", "--log_dir", c_dir,
                    "--max_steps", str(RESUME_STEPS), *common])
+    counts = path_counts()
     resumed = [r["step"] for r in more]
-    log(f"phase 5: resumed run logged steps {resumed}, backward launches "
-        f"{correlation_kernel.BWD_LAUNCHES}")
+    log(f"phase {phase}: resumed run logged steps {resumed}, correlation "
+        f"launches {counts}")
     if resumed != list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)):
         raise AssertionError(f"resume did not start at step {TRAIN_STEPS}")
-    if correlation_kernel.BWD_LAUNCHES != RESUME_STEPS - TRAIN_STEPS:
-        raise AssertionError("resumed steps did not launch the backward")
+    _check_counts(counts, RESUME_STEPS - TRAIN_STEPS,
+                  RESUME_STEPS - TRAIN_STEPS, dtype, f"phase {phase} resume")
 
     cs_dir = os.path.join(tmp, "flownet_cs")
-    correlation_kernel.LAUNCHES = correlation_kernel.BWD_LAUNCHES = 0
+    correlation_kernel.reset_launch_counts()
     cs = _train(["--model", "cs", "--log_dir", cs_dir, "--max_steps", "2",
                  "--warm_start", f"{c_dir}::FlowNetC", *common])
-    cs_fwd, cs_bwd = (correlation_kernel.LAUNCHES,
-                      correlation_kernel.BWD_LAUNCHES)
+    counts = path_counts()
     c_tree = warmstart.flatten(warmstart.load_params_tree(c_dir))
     cs_tree = warmstart.flatten(warmstart.load_params_tree(cs_dir))
     frozen = {k: v for k, v in cs_tree.items() if k.startswith("FlowNetC/")}
     same = all(np.array_equal(v, c_tree[k[len("FlowNetC/"):]])
                for k, v in frozen.items())
-    log(f"phase 5: cli train --model cs --warm_start {c_dir}::FlowNetC, "
-        f"{len(cs)} steps: correlation forward {cs_fwd}, backward {cs_bwd} "
-        f"launches; {len(frozen)} FlowNetC leaves bitwise equal to the C "
-        f"checkpoint: {same}")
+    f32_leaves = all(v.dtype == np.float32 for v in cs_tree.values())
+    log(f"phase {phase}: cli train --model cs ({dtype}) --warm_start "
+        f"{c_dir}::FlowNetC, {len(cs)} steps: correlation launches {counts}; "
+        f"{len(frozen)} FlowNetC leaves bitwise equal to the C checkpoint: "
+        f"{same}; checkpoint leaves all f32: {f32_leaves}")
     if not all(math.isfinite(r["loss"]) for r in cs) or len(cs) != 2:
         raise AssertionError(f"bad CS run {cs}")
-    if cs_bwd != 0 or cs_fwd != 2:
-        raise AssertionError("a frozen FlowNetC must launch the forward "
-                             "and never the backward")
+    _check_counts(counts, 2, 0, dtype, f"phase {phase} CS with C frozen")
     if len(frozen) != len(c_tree) or not same:
         raise AssertionError("the frozen FlowNetC moved")
-    return bwd
+    if not f32_leaves:
+        raise AssertionError("checkpoint leaves are not all f32")
 
 
-def phase6_train_step_numbers(bwd_ms):
-    """FlowNetC train step at b8 320x448 f32, TF32 off, on the card."""
+def train_step_numbers(phase, dtype, bwd_ms):
+    """FlowNetC train step at b8 320x448 on the card at ``dtype`` (f32:
+    TF32 off)."""
     import torch
 
     from flownet2_tf_tpu_torch.data.loader import (
         BatchLoader,
         SyntheticFlowDataset,
     )
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
     from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
 
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(TrainConfig(
             model="c", schedule="short", log_dir=tmp, device="cuda",
-            tensorboard=False, checkpoint_every=0))
+            tensorboard=False, checkpoint_every=0, compute_dtype=dtype))
         state = trainer.init_state()
     loader = BatchLoader(SyntheticFlowDataset(
         size=64, height=TRAIN_H, width=TRAIN_W, seed=SEED),
@@ -452,20 +521,51 @@ def phase6_train_step_numbers(bwd_ms):
         return trainer.train_step(state, host[next(i) % len(host)],
                                   preprocess)
 
+    before = correlation_kernel.BWD_LAUNCHES_BY_DTYPE[dtype]
     times = cuda_time_ms(step, runs=12, warmup=3)
     metrics = {k: float(v) for k, v in step().items()}
     torch.cuda.synchronize()
+    if correlation_kernel.BWD_LAUNCHES_BY_DTYPE[dtype] - before != 16:
+        raise AssertionError(f"timed steps did not launch the backward on "
+                             f"{dtype} features")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite train metrics {metrics}")
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    log(f"phase 6: FlowNetC train step b{TRAIN_BATCH} {TRAIN_H}x{TRAIN_W} "
-        f"f32 (TF32 off): median {med:.3f} ms over {len(times)} steps (min "
-        f"{min(times):.3f}, max {max(times):.3f}), "
+    note = " (TF32 off)" if dtype == "float32" else ""
+    log(f"phase {phase}: FlowNetC train step b{TRAIN_BATCH} {TRAIN_H}x"
+        f"{TRAIN_W} {dtype}{note}: median {med:.3f} ms over {len(times)} "
+        f"steps (min {min(times):.3f}, max {max(times):.3f}), "
         f"{TRAIN_BATCH * 1000.0 / med:.2f} examples/s, peak memory "
-        f"{peak / 2**20:.1f} MiB; correlation backward {bwd_ms:.4f} ms = "
-        f"{100.0 * bwd_ms / med:.2f}% of the step; host synthetic batch "
-        f"{host_ms:.1f} ms (BatchLoader, 4 threads)")
+        f"{peak / 2**20:.1f} MiB; correlation backward {bwd_ms:.4f} ms "
+        f"(phase 4, {dtype} inputs) = {100.0 * bwd_ms / med:.2f}% of the "
+        f"step; host synthetic batch {host_ms:.1f} ms (BatchLoader, 4 "
+        f"threads)")
+
+
+def phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu):
+    """FlowNet2 through ``cli test --compute_dtype bfloat16`` on the card:
+    one forward launch on bf16 features, and a flow as far from the f32
+    CPU flow as the bf16 CPU path's, within BF16_EPE_RATIO."""
+    from flownet2_tf_tpu_torch.training import infer
+    from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
+
+    flow_card, counts = _cli_test(ckpt, os.path.join(tmp, "out_bf16"),
+                                  "bfloat16")
+    log(f"phase 7: cli test --model 2 --compute_dtype bfloat16 --device "
+        f"cuda: correlation launches {counts}")
+    _check_counts(counts, 1, 0, "bfloat16", "phase 7")
+    a, b = load_image_pair(os.path.join(SAMPLES, "0img0.ppm"),
+                           os.path.join(SAMPLES, "0img1.ppm"))
+    flow_cpu_bf16 = infer.infer_flow("2", tree, a, b, device="cpu",
+                                     compute_dtype="bfloat16")
+    card, cpu = _epe(flow_card, flow_cpu), _epe(flow_cpu_bf16, flow_cpu)
+    log(f"phase 7: mean EPE to the f32 CPU flow: bf16 card {card:.4e} px, "
+        f"bf16 CPU {cpu:.4e} px (limit {BF16_EPE_RATIO} x the CPU's); "
+        f"bf16 card to bf16 CPU {_epe(flow_card, flow_cpu_bf16):.4e} px")
+    if not card <= BF16_EPE_RATIO * cpu:
+        raise AssertionError(f"bf16 card flow {card} px from the f32 flow, "
+                             f"CPU bf16 {cpu} px")
 
 
 def main():
@@ -482,12 +582,17 @@ def main():
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
-        tree, launches = phase2_main_path(tmp)
-    phase3_card_numbers(tree)
-    bwd_worst, bwd_timings = phase4_backward_vs_plain()
+        tree, ckpt, flow_cpu = phase2_main_path(tmp)
+        inference_numbers(3, tree, "float32", (1,))
+        bwd_worst, bwd_timings = phase4_backward_vs_plain()
+        with tempfile.TemporaryDirectory() as train_tmp:
+            training_path(5, train_tmp, "float32")
+        train_step_numbers(6, "float32", bwd_timings["float32"][0])
+        phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu)
+    inference_numbers(8, tree, "bfloat16", (1, 8))
     with tempfile.TemporaryDirectory() as tmp:
-        bwd_launches = phase5_training_path(tmp)
-    phase6_train_step_numbers(bwd_timings["float32"][0])
+        training_path(9, tmp, "bfloat16")
+    train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"][0])
 
     k_ms, p_ms = timings["float32"]
     bk_ms, bp_ms = bwd_timings["float32"]
@@ -496,7 +601,8 @@ def main():
         "route": "cuda",
         "source": CORR_SOURCE,
         "replaces": CORR_REPLACES,
-        "launches": launches,
+        "launches": sum(PATH_LAUNCHES["fwd"].values()),
+        "launches_by_dtype": PATH_LAUNCHES["fwd"],
         "max_abs_err": worst,
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -505,7 +611,8 @@ def main():
         "route": "cuda",
         "source": CORR_SOURCE,
         "replaces": CORR_BWD_REPLACES,
-        "launches": bwd_launches,
+        "launches": sum(PATH_LAUNCHES["bwd"].values()),
+        "launches_by_dtype": PATH_LAUNCHES["bwd"],
         "max_abs_err": bwd_worst,
         "ms": bk_ms,
         "plain_ms": bp_ms,

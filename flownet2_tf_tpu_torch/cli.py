@@ -2,13 +2,16 @@
 
 Port of two subcommands of ``flownet2_tf_tpu/cli.py``:
 
-* ``train``: f32 training on the procedural ``--synthetic`` dataset, with
-  the JAX flags this port supports (schedule, checkpoints and resume,
-  warm starts, ``--grad_accum``, ``--eval_every``); one JSON line per
-  logged step. The dataset readers, bf16, ``--remat``, image summaries
-  and data parallelism are not ported yet.
-* ``test``: single-pair inference -> ``.flo`` / flow PNG, and the same
-  JSON line on stdout.
+* ``train``: training on the procedural ``--synthetic`` dataset, bf16 by
+  default as in the JAX package (``--compute_dtype float32`` for the f32
+  path), with the JAX flags this port supports (schedule, checkpoints and
+  resume, warm starts, ``--grad_accum``, ``--eval_every``,
+  ``--transfer_flow_dtype``); one JSON line per logged step. The dataset
+  readers, ``--remat``, image summaries and data parallelism are not
+  ported yet.
+* ``test``: single-pair inference, f32 by default or
+  ``--compute_dtype bfloat16`` -> ``.flo`` / flow PNG, and the same JSON
+  line on stdout.
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
 card raises). The other subcommands, the approximation knobs
@@ -61,6 +64,7 @@ def cmd_train(args):
         checkpoint_every=args.checkpoint_every,
         grad_accum=args.grad_accum,
         eval_every=args.eval_every,
+        transfer_flow_dtype=args.transfer_flow_dtype,
         device=args.device,
     )
     trainer = Trainer(cfg)
@@ -135,7 +139,7 @@ def build_parser():
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train a model (f32, synthetic data)")
+    p = sub.add_parser("train", help="train a model (synthetic data)")
     _add_model_arg(p)
     p.add_argument("--schedule", default="long",
                    help="long (S_long), fine (S_fine), short")
@@ -149,8 +153,13 @@ def build_parser():
     p.add_argument("--grad_accum", type=int, default=1,
                    help="run each step as N equal microbatches, averaging "
                         "gradients (batch size must divide by N)")
+    p.add_argument("--transfer_flow_dtype", default="float32",
+                   choices=["float32", "float16", "bfloat16"],
+                   help="host->device GT-flow dtype (cast back to f32 on "
+                        "the device)")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--compute_dtype", default="float32", choices=["float32"])
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--synthetic", action="store_true",
                    help="train on the procedural dataset (no downloads); "
@@ -177,7 +186,8 @@ def build_parser():
     p.add_argument("--out", default="./")
     p.add_argument("--no_image", action="store_true")
     p.add_argument("--no_flo", action="store_true")
-    p.add_argument("--compute_dtype", default="float32", choices=["float32"])
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["float32", "bfloat16"])
     _add_device_arg(p)
     p.set_defaults(fn=cmd_test)
     return parser

@@ -14,13 +14,21 @@ Padding conventions (Caffe's, like the JAX package):
 * conv k x k, stride s: symmetric spatial padding (k-1)//2;
 * deconv 4 x 4, stride 2, pad 1: an exact 2x upsample.
 
-The S2D head transforms, ``cast_params_for_inference`` and the bf16
-policy of the JAX package are not ported yet.
+Mixed precision (the JAX package's ``_conv_io_dtypes``): every layer's
+``forward`` takes the model's ``compute_dtype`` (None or float32: the f32
+path; bfloat16: the bf16 policy). Under bf16 a feature layer (``act``)
+casts its input, weights and bias to bf16 and returns bf16; a flow head,
+flow upsampler or interconv (``act=False``) runs in f32. The parameters
+stay f32 masters (training) unless :func:`cast_params_for_inference`
+pre-cast the feature layers' (serving). ``torch.autocast`` is not used:
+its op lists would put the f32 layers in bf16. The S2D head transforms
+are TPU layout work and are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +36,37 @@ from torch import nn
 
 LEAK = 0.1
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+# The activation layout each compute dtype's convs run in, chosen on the
+# H100 (PERF.md): cuDNN's f32 convs work in NCHW and transpose around a
+# channels_last input; its bf16 tensor-core convs work in NHWC.
+_CHANNELS_LAST = {torch.float32: False, torch.bfloat16: True}
+
+
+def compute_dtype_of(name) -> torch.dtype:
+    """``'float32'`` / ``'bfloat16'`` -> the torch dtype; raises on any
+    other name."""
+    if str(name) not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype {name!r}: the torch port runs "
+            f"{tuple(COMPUTE_DTYPES)}"
+        )
+    return COMPUTE_DTYPES[str(name)]
+
 
 def leaky_relu(x, leak: float = LEAK):
-    """LeakyReLU, slope 0.1 (reference ``src/utils.py::LeakyReLU``)."""
-    return F.leaky_relu(x, leak)
+    """LeakyReLU, slope 0.1 (reference ``src/utils.py::LeakyReLU``).
+
+    The slope is taken in ``x``'s dtype, as the JAX package's
+    ``leak * x`` takes it: under bf16 that is bf16(0.1) = 0.10009765625.
+    """
+    return F.leaky_relu(x, _leak_in(leak, x.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _leak_in(leak: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(leak, dtype=dtype))
 
 
 def check_divisible_by_64(h: int, w: int):
@@ -107,6 +142,45 @@ def f32_policy():
          torch.backends.cuda.matmul.allow_tf32) = prev
 
 
+def io_dtype(compute_dtype, act: bool) -> torch.dtype:
+    """The dtype a layer computes in (``_conv_io_dtypes``): the compute
+    dtype for a feature layer (``act``) under the bf16 policy, else f32.
+
+    A bf16 conv returns bf16 (cuDNN accumulates in f32 inside), so each
+    conv's output dtype equals its operands' and autograd's transposed
+    convs stay single-dtype."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return torch.float32
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(
+            f"compute_dtype {compute_dtype}: the torch port runs float32 "
+            "or bfloat16"
+        )
+    return compute_dtype if act else torch.float32
+
+
+def check_f32_master(layer, io: torch.dtype):
+    """An f32-policy layer must hold f32 weights (``_check_f32_master``).
+    bf16 weights there mean the module was pre-cast
+    (:func:`cast_params_for_inference`, or a whole-module ``.bfloat16()``)
+    and is now run under another policy; casting the quantized copy back
+    to f32 would claim the exact path at bf16 weight precision."""
+    if io == torch.float32 and layer.weights.dtype == torch.bfloat16:
+        raise ValueError(
+            f"{layer!r}: f32-policy layer holds bfloat16 weights; the "
+            "module was pre-cast for another policy. Reload the f32 "
+            "weights, and pre-cast with cast_params_for_inference only for "
+            "bf16 inference"
+        )
+
+
+def _layer_forward(layer, x, compute_dtype, op, **kw):
+    io = io_dtype(compute_dtype, layer.act)
+    check_f32_master(layer, io)
+    y = op(x.to(io), layer.weights.to(io), layer.biases.to(io), **kw)
+    return leaky_relu(y) if layer.act else y
+
+
 class Conv(nn.Module):
     """Caffe-padded k x k conv, stride s, + optional LeakyReLU.
 
@@ -136,11 +210,14 @@ class Conv(nn.Module):
         o, i, kh, kw = shape
         return (kh, kw, i, o)
 
-    def forward(self, x):
+    def extra_repr(self):
+        o, i, k, _ = self.weights.shape
+        return f"{i}->{o}, k={k}, stride={self.stride}, act={self.act}"
+
+    def forward(self, x, compute_dtype=None):
         k = self.weights.shape[-1]
-        y = F.conv2d(x, self.weights, self.biases, stride=self.stride,
-                     padding=(k - 1) // 2)
-        return leaky_relu(y) if self.act else y
+        return _layer_forward(self, x, compute_dtype, F.conv2d,
+                              stride=self.stride, padding=(k - 1) // 2)
 
 
 class Deconv(nn.Module):
@@ -174,10 +251,31 @@ class Deconv(nn.Module):
         i, o, kh, kw = shape
         return (kh, kw, i, o)
 
-    def forward(self, x):
-        y = F.conv_transpose2d(x, self.weights, self.biases, stride=2,
-                               padding=1)
-        return leaky_relu(y) if self.act else y
+    def extra_repr(self):
+        i, o, k, _ = self.weights.shape
+        return f"{i}->{o}, k={k}, act={self.act}"
+
+    def forward(self, x, compute_dtype=None):
+        return _layer_forward(self, x, compute_dtype, F.conv_transpose2d,
+                              stride=2, padding=1)
+
+
+def cast_params_for_inference(module: nn.Module,
+                              compute_dtype=torch.bfloat16) -> nn.Module:
+    """Pre-cast, in place, the feature layers' (``act``) weights and biases
+    to the bf16 compute dtype, for serving: each forward then skips the
+    f32 -> bf16 weight casts and reads half the weight bytes, with outputs
+    bitwise equal (bf16(w) == bf16(bf16(w))). Flow heads, flow upsamplers
+    and interconvs keep f32, the JAX package's ``_F32_LAYER_MARKERS``.
+
+    Inference only: the trainer keeps f32 masters. ``to_jax_params`` (and
+    so a checkpoint) still returns f32. Returns ``module``."""
+    with torch.no_grad():
+        for layer in module.modules():
+            if isinstance(layer, (Conv, Deconv)) and layer.act:
+                for p in (layer.weights, layer.biases):
+                    p.data = p.data.to(compute_dtype)
+    return module
 
 
 def msra_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -204,15 +302,20 @@ def predict_flow(cin: int) -> Conv:
     return Conv(3, cin, 2, act=False)
 
 
-def nchw(x):
-    """NHWC -> NCHW, contiguous.
+def nchw(x, compute_dtype=None):
+    """NHWC -> NCHW in the layout the compute dtype's convs run in.
 
-    A copy on purpose: a bare permute would hand cuDNN channels_last
-    tensors, and every layer after would inherit that layout, while
-    cuDNN's f32 conv kernels on Hopper work in NCHW and transpose around
-    each call (PERF.md, PR 1 findings).
+    f32: a contiguous NCHW copy, on purpose: a bare permute would hand
+    cuDNN channels_last tensors, every layer after would inherit that
+    layout, and cuDNN's f32 conv kernels on Hopper work in NCHW and
+    transpose around each call (PERF.md, Findings). bf16: the
+    channels_last view (no copy of an NHWC-contiguous tensor), which the
+    convs, concats and casts after it keep.
     """
-    return x.permute(0, 3, 1, 2).contiguous()
+    x = x.permute(0, 3, 1, 2)
+    if _CHANNELS_LAST[io_dtype(compute_dtype, True)]:
+        return x.contiguous(memory_format=torch.channels_last)
+    return x.contiguous()
 
 
 def nhwc(x):

@@ -58,31 +58,37 @@ class FlowNetC(nn.Module):
         enc_ch = {n: c for n, _, _, c in TOWER + TAIL}
         flownet_s.add_decoder(self, enc_ch)
 
-    def forward(self, inputs):
+    def forward(self, inputs, compute_dtype=None):
+        """``compute_dtype`` as in ``FlowNetS.forward``. Under bf16 the
+        towers run bf16 and the correlation takes their bf16 conv3
+        features as they are (f32 sums inside, f32 cost volume out)."""
+        cd = compute_dtype
         a = inputs["input_a"]
         b = inputs["input_b"]
         n, in_h, in_w, _ = a.shape
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy():
             # both towers in one batched pass (shared weights)
-            x = common.nchw(torch.cat([a, b], dim=0))
+            x = common.nchw(torch.cat([a, b], dim=0), cd)
             for name, _, _, _ in TOWER:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, cd)
                 if name == "conv2":
                     conv2_a = x[:n]
             feat_a, feat_b = x[:n], x[n:]
-            # the kernel reads NHWC-contiguous features: one copy each
+            # the kernel reads NHWC-contiguous features: one copy each of
+            # NCHW (f32) features, none of channels_last (bf16) ones
             cc = correlation(common.nhwc(feat_a).contiguous(),
                              common.nhwc(feat_b).contiguous(),
                              **CORR_KWARGS)
             cc = common.leaky_relu(cc)
-            redir = self.conv_redir(feat_a)
-            x = torch.cat([redir, common.nchw(cc).to(redir.dtype)], dim=1)
+            redir = self.conv_redir(feat_a, cd)
+            x = torch.cat([redir, common.nchw(cc, cd).to(redir.dtype)],
+                          dim=1)
             acts = {"conv2": conv2_a}
             for name, _, _, _ in TAIL:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, cd)
                 acts[name] = x
-            return flownet_s.decoder(self, acts, (in_h, in_w))
+            return flownet_s.decoder(self, acts, (in_h, in_w), cd)
 
 
 def loss(flow_gt, predictions):

@@ -53,22 +53,28 @@ def add_decoder(net: nn.Module, enc_ch: dict):
         prev_ch = enc_ch[SKIP[down]] + DECONV_CH[down] + 2
 
 
-def decoder(net: nn.Module, acts: dict, input_hw, top: str = "conv6_1"):
+def decoder(net: nn.Module, acts: dict, input_hw, compute_dtype=None,
+            top: str = "conv6_1"):
     """Shared FlowNet refinement decoder (also used by FlowNetC).
 
     Per level L in 5..2: deconv(L), learned upsample of the previous flow,
     concat ``[skip, up_feat, up_flow]`` (trap C3), predict. ``acts`` are
-    NCHW; the returned predictions are NHWC.
+    NCHW; the returned predictions are NHWC and f32 under either policy
+    (the flow heads and upsamplers are f32 layers).
     """
+    cd = compute_dtype
     preds = {}
     x = acts[top]
-    flow = net.predict_flow6(x)
+    flow = net.predict_flow6(x, cd)
     preds["predict_flow6"] = common.nhwc(flow)
     for lvl in (5, 4, 3, 2):
-        up_feat = getattr(net, f"deconv{lvl}")(x)
-        up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow)
-        x = torch.cat([acts[SKIP[lvl]], up_feat, up_flow], dim=1)
-        flow = getattr(net, f"predict_flow{lvl}")(x)
+        up_feat = getattr(net, f"deconv{lvl}")(x, cd)
+        up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
+        skip = acts[SKIP[lvl]]
+        # the flow stays f32 in preds; only the concat copy takes the
+        # skip's dtype, so the feature map is not promoted back to f32
+        x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+        flow = getattr(net, f"predict_flow{lvl}")(x, cd)
         preds[f"predict_flow{lvl}"] = common.nhwc(flow)
     preds["flow"] = resize_bilinear_tf1(
         preds["predict_flow2"] * 20.0, input_hw[0], input_hw[1]
@@ -88,10 +94,12 @@ class FlowNetS(nn.Module):
             cin = cout
         add_decoder(self, {n: c for n, _, _, c in ENCODER})
 
-    def forward(self, inputs):
+    def forward(self, inputs, compute_dtype=None):
         """``inputs``: dict with 'input_a'/'input_b' (NHWC, [0,1] floats)
-        or a pre-concatenated NHWC tensor. Returns
-        {'predict_flow6'..'predict_flow2', 'flow'}, NHWC."""
+        or a pre-concatenated NHWC tensor; ``compute_dtype``: None or
+        ``torch.float32`` (the f32 path) or ``torch.bfloat16`` (the bf16
+        policy, ``models/common.py``). Returns
+        {'predict_flow6'..'predict_flow2', 'flow'}, NHWC, f32."""
         if isinstance(inputs, dict):
             x = torch.cat([inputs["input_a"], inputs["input_b"]], dim=-1)
         else:
@@ -99,12 +107,12 @@ class FlowNetS(nn.Module):
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy():
-            x = common.nchw(x)
+            x = common.nchw(x, compute_dtype)
             acts = {}
             for name, _, _, _ in ENCODER:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, compute_dtype)
                 acts[name] = x
-            return decoder(self, acts, (in_h, in_w))
+            return decoder(self, acts, (in_h, in_w), compute_dtype)
 
 
 def loss(flow_gt, predictions):

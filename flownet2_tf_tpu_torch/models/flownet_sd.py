@@ -63,7 +63,10 @@ class FlowNetSD(nn.Module):
                             common.predict_flow(INTERCONV_CH[lvl]))
             prev_ch = concat_ch
 
-    def forward(self, inputs):
+    def forward(self, inputs, compute_dtype=None):
+        """``compute_dtype`` as in ``FlowNetS.forward``; the interconvs
+        are f32 layers and take the bf16 concat in f32."""
+        cd = compute_dtype
         if isinstance(inputs, dict):
             x = torch.cat([inputs["input_a"], inputs["input_b"]], dim=-1)
         else:
@@ -71,21 +74,23 @@ class FlowNetSD(nn.Module):
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy():
-            x = common.nchw(x)
+            x = common.nchw(x, cd)
             acts = {}
             for name, _, _, _ in ENCODER:
-                x = getattr(self, name)(x)
+                x = getattr(self, name)(x, cd)
                 acts[name] = x
 
             preds = {}
-            flow = self.predict_flow6(x)
+            flow = self.predict_flow6(x, cd)
             preds["predict_flow6"] = common.nhwc(flow)
             for lvl in (5, 4, 3, 2):
-                up_feat = getattr(self, f"deconv{lvl}")(x)
-                up_flow = getattr(self, f"upsample_flow{lvl + 1}to{lvl}")(flow)
-                x = torch.cat([acts[SKIP[lvl]], up_feat, up_flow], dim=1)
-                inter = getattr(self, f"interconv{lvl}")(x)
-                flow = getattr(self, f"predict_flow{lvl}")(inter)
+                up_feat = getattr(self, f"deconv{lvl}")(x, cd)
+                up_flow = getattr(self, f"upsample_flow{lvl + 1}to{lvl}")(
+                    flow, cd)
+                skip = acts[SKIP[lvl]]
+                x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+                inter = getattr(self, f"interconv{lvl}")(x, cd)
+                flow = getattr(self, f"predict_flow{lvl}")(inter, cd)
                 preds[f"predict_flow{lvl}"] = common.nhwc(flow)
             preds["flow"] = resize_bilinear_tf1(
                 preds["predict_flow2"] * 20.0, in_h, in_w

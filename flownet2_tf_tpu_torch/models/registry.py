@@ -4,7 +4,10 @@ Port of ``flownet2_tf_tpu/models/registry.py``, with the same names,
 aliases, losses and ``default_frozen`` scopes. ``get_model(name)`` returns
 a :class:`ModelSpec`; ``build(device)`` makes the ``nn.Module`` (weights
 zero until ``training/warmstart.py`` loads them or
-``models/common.py::msra_init_`` draws them).
+``models/common.py::msra_init_`` draws them). Every model's forward is
+``model(inputs, compute_dtype=None)``, the JAX ``apply(params, inputs,
+compute_dtype=...)``: None or ``torch.float32`` runs the f32 path,
+``torch.bfloat16`` the bf16 policy of ``models/common.py``.
 """
 
 from __future__ import annotations

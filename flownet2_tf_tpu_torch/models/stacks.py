@@ -16,9 +16,11 @@ Port of the plain assemblies of ``flownet2_tf_tpu/models/stacks.py``:
 Sub-module names are the JAX package's parameter scopes
 (``FlowNetCSS.FlowNetCS.FlowNetC.conv1`` <-> ``FlowNetCSS/FlowNetCS/
 FlowNetC/conv1``). The assemblies run NHWC, like the JAX package; the
-nets they feed run NCHW. The S2D assemblies, the half-resolution fusion
-input and the coarse warps are TPU layout or approximation work and are
-not ported.
+nets they feed run NCHW. Under the bf16 policy (``compute_dtype``,
+``models/common.py``) the warps, brightness errors, norms and magnitudes
+stay f32; only the concats that feed the next net are cast to bf16. The
+S2D assemblies, the half-resolution fusion input and the coarse warps are
+TPU layout or approximation work and are not ported.
 """
 
 from __future__ import annotations
@@ -32,13 +34,16 @@ from flownet2_tf_tpu_torch.ops.flow_warp import stack_warp, stack_warp_multi
 from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 
 
-def _second_stage_input(input_a, input_b, flow):
+def _second_stage_input(input_a, input_b, flow, compute_dtype=None):
     """The 12-channel NHWC stage-2 input
-    ``[a, b, warped, flow * 0.05, brightness_error]``."""
+    ``[a, b, warped, flow * 0.05, brightness_error]``: the warp and the
+    error in f32, the concat in the compute dtype."""
     warped = stack_warp(input_b, flow)
     brightness_error = common.channel_norm(input_a - warped)
+    dt = compute_dtype or input_a.dtype
     return torch.cat(
-        [input_a, input_b, warped, flow * FLOW_SCALE, brightness_error],
+        [t.to(dt) for t in (input_a, input_b, warped, flow * FLOW_SCALE,
+                            brightness_error)],
         dim=-1,
     )
 
@@ -49,11 +54,12 @@ class FlowNetCS(nn.Module):
         self.FlowNetC = flownet_c.FlowNetC()
         self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
 
-    def forward(self, inputs):
-        preds_c = self.FlowNetC(inputs)
+    def forward(self, inputs, compute_dtype=None):
+        cd = compute_dtype
+        preds_c = self.FlowNetC(inputs, cd)
         x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_c["flow"])
-        preds = self.FlowNetS(x)
+                                preds_c["flow"], cd)
+        preds = self.FlowNetS(x, cd)
         preds["flow_c"] = preds_c["flow"]
         return preds
 
@@ -68,11 +74,12 @@ class FlowNetCSS(nn.Module):
         self.FlowNetCS = FlowNetCS()
         self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
 
-    def forward(self, inputs):
-        preds_cs = self.FlowNetCS(inputs)
+    def forward(self, inputs, compute_dtype=None):
+        cd = compute_dtype
+        preds_cs = self.FlowNetCS(inputs, cd)
         x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_cs["flow"])
-        preds = self.FlowNetS(x)
+                                preds_cs["flow"], cd)
+        preds = self.FlowNetS(x, cd)
         preds["flow_cs"] = preds_cs["flow"]
         return preds
 
@@ -126,12 +133,13 @@ class FlowNet2(nn.Module):
         self.fuse_interconv0 = common.Conv(3, concat0_ch, 16, act=False)
         self.predict_flow0 = common.predict_flow(16)
 
-    def forward(self, inputs):
+    def forward(self, inputs, compute_dtype=None):
+        cd = compute_dtype
         input_a = inputs["input_a"]
         input_b = inputs["input_b"]
         n, in_h, in_w, _ = input_a.shape
-        preds_css = self.FlowNetCSS(inputs)
-        preds_sd = self.FlowNetSD(inputs)
+        preds_css = self.FlowNetCSS(inputs, cd)
+        preds_sd = self.FlowNetSD(inputs, cd)
         flow_css = preds_css["flow"]
         flow_sd = preds_sd["flow"]
 
@@ -140,20 +148,23 @@ class FlowNet2(nn.Module):
         err_sd = common.channel_norm(input_a - warped_sd)
         mag_css = common.channel_norm(flow_css)
         mag_sd = common.channel_norm(flow_sd)
+        dt = cd or input_a.dtype
         x = torch.cat(
             [
-                input_a,
-                flow_css * FLOW_SCALE,
-                flow_sd * FLOW_SCALE,
-                mag_css,
-                mag_sd,
-                err_css,
-                err_sd,
+                t.to(dt) for t in (
+                    input_a,
+                    flow_css * FLOW_SCALE,
+                    flow_sd * FLOW_SCALE,
+                    mag_css,
+                    mag_sd,
+                    err_css,
+                    err_sd,
+                )
             ],
             dim=-1,
         )
         with common.f32_policy():
-            preds = self._fusion_head(common.nchw(x))
+            preds = self._fusion_head(common.nchw(x, cd), cd)
         preds["flow"] = resize_bilinear_tf1(
             preds["predict_flow0"] * 20.0, in_h, in_w
         )
@@ -161,30 +172,34 @@ class FlowNet2(nn.Module):
         preds["flow_sd"] = flow_sd
         return preds
 
-    def _fusion_head(self, x):
+    def _fusion_head(self, x, cd):
         """Fusion pyramid + refinement (fuse_conv* -> predict_flow2/1/0),
         NCHW in, NHWC predictions out."""
         acts = {}
         for name, _, _, _, _ in FUSION:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, cd)
             acts[name] = x
 
         preds = {}
-        flow2 = self.predict_flow2(x)
+        flow2 = self.predict_flow2(x, cd)
         preds["predict_flow2"] = common.nhwc(flow2)
 
-        up_feat1 = self.fuse_deconv1(x)
-        up_flow1 = self.fuse_upsample_flow2to1(flow2)
-        concat1 = torch.cat([acts["fuse_conv1_1"], up_feat1, up_flow1], dim=1)
-        inter1 = self.fuse_interconv1(concat1)
-        flow1 = self.predict_flow1(inter1)
+        up_feat1 = self.fuse_deconv1(x, cd)
+        up_flow1 = self.fuse_upsample_flow2to1(flow2, cd)
+        skip1 = acts["fuse_conv1_1"]
+        concat1 = torch.cat([skip1, up_feat1, up_flow1.to(skip1.dtype)],
+                            dim=1)
+        inter1 = self.fuse_interconv1(concat1, cd)
+        flow1 = self.predict_flow1(inter1, cd)
         preds["predict_flow1"] = common.nhwc(flow1)
 
-        up_feat0 = self.fuse_deconv0(concat1)
-        up_flow0 = self.fuse_upsample_flow1to0(flow1)
-        concat0 = torch.cat([acts["fuse_conv0"], up_feat0, up_flow0], dim=1)
-        inter0 = self.fuse_interconv0(concat0)
-        flow0 = self.predict_flow0(inter0)
+        up_feat0 = self.fuse_deconv0(concat1, cd)
+        up_flow0 = self.fuse_upsample_flow1to0(flow1, cd)
+        skip0 = acts["fuse_conv0"]
+        concat0 = torch.cat([skip0, up_feat0, up_flow0.to(skip0.dtype)],
+                            dim=1)
+        inter0 = self.fuse_interconv0(concat0, cd)
+        flow0 = self.predict_flow0(inter0, cd)
         preds["predict_flow0"] = common.nhwc(flow0)
         return preds
 

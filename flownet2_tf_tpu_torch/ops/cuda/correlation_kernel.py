@@ -26,12 +26,28 @@ import torch
 
 # Launches of the forward and of the backward CUDA kernels in this
 # process, counted where the wrapper launches them and nowhere else (one
-# backward launch runs the da and the db kernel).
+# backward launch runs the da and the db kernel); the same launches again
+# by the dtype of the features they took.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
+BWD_LAUNCHES_BY_DTYPE = {"float32": 0, "bfloat16": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _fns: dict = {}
+
+
+def reset_launch_counts():
+    """Set every launch count to 0."""
+    global LAUNCHES, BWD_LAUNCHES
+    LAUNCHES = BWD_LAUNCHES = 0
+    for counts in (LAUNCHES_BY_DTYPE, BWD_LAUNCHES_BY_DTYPE):
+        for k in counts:
+            counts[k] = 0
+
+
+def _dtype_name(t):
+    return str(t.dtype).split(".")[-1]
 
 
 def supported(kernel_size, max_displacement, stride_1, stride_2, pad) -> bool:
@@ -106,6 +122,7 @@ def _launch(a, b, max_displacement, stride_2):
     if rc != 0:
         raise RuntimeError(f"correlation kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_DTYPE[_dtype_name(a)] += 1
     return out
 
 
@@ -137,6 +154,7 @@ def correlation_cuda_backward(grad, a, b, max_displacement, stride_2):
         raise RuntimeError(
             f"correlation backward kernel launch failed: CUDA error {rc}")
     BWD_LAUNCHES += 1
+    BWD_LAUNCHES_BY_DTYPE[_dtype_name(a)] += 1
     return da, db
 
 

@@ -3,9 +3,12 @@
 Port of the single-pair half of ``flownet2_tf_tpu/training/infer.py``.
 Arbitrary input sizes are edge-padded up to the next multiple of 64 and
 the flow is cropped back. Inference runs under ``torch.inference_mode()``
-at f32 with TF32 off (``models/common.py::f32_policy``). The device is
-explicit: asking for CUDA where there is none raises; nothing falls back
-to the CPU. Dataset evaluation (``evaluate_dataset``) is not ported yet.
+at the compute dtype asked for: ``float32`` (TF32 off,
+``models/common.py::f32_policy``) or ``bfloat16`` (the bf16 policy, with
+the feature layers' weights pre-cast once after loading,
+``models/common.py::cast_params_for_inference``). The device is explicit:
+asking for CUDA where there is none raises; nothing falls back to the
+CPU. Dataset evaluation (``evaluate_dataset``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +18,11 @@ import os
 import numpy as np
 import torch
 
+from flownet2_tf_tpu_torch.models.common import (
+    COMPUTE_DTYPES as _DTYPES,
+    cast_params_for_inference,
+    compute_dtype_of,
+)
 from flownet2_tf_tpu_torch.models.registry import get_model
 from flownet2_tf_tpu_torch.training.warmstart import (
     load_jax_params,
@@ -23,7 +31,7 @@ from flownet2_tf_tpu_torch.training.warmstart import (
 from flownet2_tf_tpu_torch.utils import flowlib
 from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
 
-COMPUTE_DTYPES = ("float32",)
+COMPUTE_DTYPES = tuple(_DTYPES)  # ("float32", "bfloat16")
 
 
 def resolve_device(device) -> torch.device:
@@ -58,22 +66,15 @@ def pad_to_multiple(x, multiple=64):
     return x.index_select(1, rows).index_select(2, cols), h, w
 
 
-def forward_flow(model, image_a, image_b):
+def forward_flow(model, image_a, image_b, compute_dtype=None):
     """Run a loaded model on NHWC float tensors of any size; returns the
-    full-res (N, H, W, 2) flow tensor, cropped back from the %64 pad."""
+    full-res (N, H, W, 2) f32 flow tensor, cropped back from the %64 pad.
+    ``compute_dtype``: None or a torch dtype, as the model's forward."""
     with torch.inference_mode():
         a, h, w = pad_to_multiple(image_a)
         b, _, _ = pad_to_multiple(image_b)
-        preds = model({"input_a": a, "input_b": b})
+        preds = model({"input_a": a, "input_b": b}, compute_dtype)
         return preds["flow"][:, :h, :w, :]
-
-
-def _check_compute_dtype(compute_dtype):
-    if str(compute_dtype) not in COMPUTE_DTYPES:
-        raise ValueError(
-            f"compute_dtype {compute_dtype!r}: the torch port runs "
-            f"{COMPUTE_DTYPES} only (the bf16 policy is not ported yet)"
-        )
 
 
 def infer_flow(model_name, params, image_a, image_b, device="cuda",
@@ -81,17 +82,20 @@ def infer_flow(model_name, params, image_a, image_b, device="cuda",
     """Run a model on a single pair or batch; returns full-res flow.
 
     ``image_a/b``: (H, W, 3) or (N, H, W, 3) float arrays in [0, 1].
-    ``params``: a JAX-layout tree. Returns a numpy array.
+    ``params``: a JAX-layout tree. ``compute_dtype``: 'float32' or
+    'bfloat16'. Returns a numpy f32 array.
     """
-    _check_compute_dtype(compute_dtype)
+    cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     model = load_model(model_name, params, device)
+    if cd == torch.bfloat16:
+        cast_params_for_inference(model, cd)
     a = torch.as_tensor(np.asarray(image_a, np.float32), device=device)
     b = torch.as_tensor(np.asarray(image_b, np.float32), device=device)
     squeeze = a.ndim == 3
     if squeeze:
         a, b = a[None], b[None]
-    flow = forward_flow(model, a, b).cpu().numpy()
+    flow = forward_flow(model, a, b, cd).cpu().numpy()
     return flow[0] if squeeze else flow
 
 
@@ -100,7 +104,7 @@ def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
               device="cuda"):
     """Pair of image files -> .png / .flo outputs; returns the predicted
     (H, W, 2) flow."""
-    _check_compute_dtype(compute_dtype)
+    compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     params = load_params_tree(checkpoint)
     a, b = load_image_pair(input_a_path, input_b_path)

@@ -1,5 +1,6 @@
-"""Training runtime on one device: the f32 train step, checkpoints,
-auto-resume, warm starts, frozen stages and metrics.
+"""Training runtime on one device: the train step (bf16 policy by default,
+or f32), checkpoints, auto-resume, warm starts, frozen stages and
+metrics.
 
 Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
 ``Trainer``) for one device. What maps to what:
@@ -7,6 +8,13 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
 * the jitted pure step -> :meth:`Trainer.train_step`, eager autograd on a
   :class:`TrainState` updated in place (model, Adam, step count), all of
   it under ``models/common.py::f32_policy`` (TF32 off, backward included);
+* ``compute_dtype`` (default ``bfloat16``, as in the JAX package) -> the
+  model's forward runs the bf16 policy of ``models/common.py`` over f32
+  master weights: each feature layer casts its weights to bf16 inside
+  its forward, so autograd returns f32 gradients, and Adam, the loss and
+  the checkpoints stay f32;
+* ``transfer_flow_dtype`` -> the GT flow is cast to float16/bfloat16 on
+  the host, crosses to the device narrow and is cast back to f32 there;
 * device-side augmentation inside the step -> ``data/augmentation.py`` on
   the device, its draws from a ``torch.Generator`` seeded from
   ``(seed + 17, step)``, so a resumed run draws what an uninterrupted one
@@ -23,9 +31,8 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   package saves asynchronously); keep-K and auto-resume from the newest
   are the same, and so is the interrupt checkpoint in ``finally``.
 
-Not ported yet (ROADMAP): bf16 compute, ``remat``,
-``transfer_flow_dtype``, ``device_prefetch``, TensorBoard image
-summaries and data parallelism.
+Not ported yet (ROADMAP): ``remat``, ``device_prefetch``, TensorBoard
+image summaries and data parallelism.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from torch import nn
 
 from flownet2_tf_tpu_torch.data import augmentation
 from flownet2_tf_tpu_torch.models.common import (
+    compute_dtype_of,
     endpoint_error_mean,
     f32_policy,
     msra_init_,
@@ -62,7 +70,8 @@ from flownet2_tf_tpu_torch.training.warmstart import (
 from flownet2_tf_tpu_torch.utils.schedules import get_schedule, make_lr_schedule
 
 OPTIMIZER_FILE = "optimizer.pt"
-COMPUTE_DTYPES = ("float32",)
+TRANSFER_FLOW_DTYPES = {"float32": torch.float32, "float16": torch.float16,
+                        "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -71,9 +80,7 @@ class TrainConfig:
     schedule: Any = "long"  # name or schedule dict
     log_dir: str = "./logs/flownet_s"
     seed: int = 0
-    # the JAX package defaults to bfloat16; the port runs float32 only
-    # until the bf16 policy is ported (ROADMAP Queue 1 item 10)
-    compute_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"  # 'bfloat16' | 'float32'
     augment: bool = True
     frozen: Optional[Sequence[str]] = None  # None -> model default
     max_steps: Optional[int] = None  # None -> schedule max_iter
@@ -87,6 +94,10 @@ class TrainConfig:
     # periodic validation: every N steps the mean EPE of eval batches
     eval_every: int = 0
     eval_batches: int = 4
+    # host->device GT-flow dtype: 'float32' (exact), 'float16' or
+    # 'bfloat16' (half the flow's bytes on the wire; f32 again on the
+    # device, so the loss and augmentation math stay f32)
+    transfer_flow_dtype: str = "float32"
     device: str = "cuda"
 
 
@@ -112,12 +123,14 @@ class Trainer:
             if isinstance(config.schedule, str)
             else dict(config.schedule)
         )
-        if str(config.compute_dtype) not in COMPUTE_DTYPES:
+        self.compute_dtype = compute_dtype_of(config.compute_dtype)
+        tfd = str(config.transfer_flow_dtype)
+        if tfd not in TRANSFER_FLOW_DTYPES:
             raise ValueError(
-                f"compute_dtype {config.compute_dtype!r}: the torch port "
-                f"trains in {COMPUTE_DTYPES} only (the bf16 policy is not "
-                "ported yet)"
+                f"transfer_flow_dtype must be one of "
+                f"{tuple(TRANSFER_FLOW_DTYPES)}, got {tfd!r}"
             )
+        self.flow_wire_dtype = TRANSFER_FLOW_DTYPES[tfd]
         self.device = resolve_device(config.device)
         self.frozen = tuple(
             self.spec.default_frozen if config.frozen is None
@@ -185,15 +198,18 @@ class Trainer:
 
     # -- the step -----------------------------------------------------------
 
-    def _to_device(self, batch):
-        return tuple(
-            torch.as_tensor(np.asarray(batch[k])).to(self.device,
-                                                     torch.float32)
-            for k in ("image_a", "image_b", "flow")
-        )
+    def _to_device(self, batch, flow_wire=torch.float32):
+        """The batch as f32 device tensors; the flow crosses as
+        ``flow_wire`` (cast on the host) and is cast back on the device."""
+        image_a, image_b, flow = (torch.as_tensor(np.asarray(batch[k]))
+                                  for k in ("image_a", "image_b", "flow"))
+        return (image_a.to(self.device, torch.float32),
+                image_b.to(self.device, torch.float32),
+                flow.to(flow_wire).to(self.device).float())
 
     def _loss(self, model, image_a, image_b, flow):
-        preds = model({"input_a": image_a, "input_b": image_b})
+        preds = model({"input_a": image_a, "input_b": image_b},
+                      self.compute_dtype)
         data_loss = self.spec.loss(flow, preds)
         reg = optim.l2_regularization(model, self.frozen)
         total = data_loss + self.weight_decay * reg
@@ -205,7 +221,7 @@ class Trainer:
         metrics as 0-d device tensors (``lr`` a float), read at log time."""
         cfg = self.config
         accum = max(1, int(cfg.grad_accum))
-        image_a, image_b, flow = self._to_device(batch)
+        image_a, image_b, flow = self._to_device(batch, self.flow_wire_dtype)
         if image_a.shape[0] % accum:
             raise ValueError(
                 f"grad_accum={accum} must divide the batch size "
@@ -253,7 +269,8 @@ class Trainer:
                     image_a, image_b, flow = self._to_device(batch)
                     a, h, w = pad_to_multiple(image_a)
                     b, _, _ = pad_to_multiple(image_b)
-                    pred = state.model({"input_a": a, "input_b": b})["flow"]
+                    pred = state.model({"input_a": a, "input_b": b},
+                                       self.compute_dtype)["flow"]
                     total += float(endpoint_error_mean(
                         flow, pred[:, :h, :w, :]))
                     n += 1

@@ -17,7 +17,8 @@ import jax  # noqa: E402
 from flownet2_tf_tpu.models.registry import get_model as jax_model  # noqa: E402
 from flownet2_tf_tpu.training import warmstart as jws  # noqa: E402
 from flownet2_tf_tpu_torch import cli  # noqa: E402
-from flownet2_tf_tpu_torch.training import infer  # noqa: E402
+from flownet2_tf_tpu_torch.models.registry import get_model  # noqa: E402
+from flownet2_tf_tpu_torch.training import infer, warmstart  # noqa: E402
 from flownet2_tf_tpu_torch.utils import flowlib  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -90,12 +91,22 @@ def test_cuda_device_without_gpu_raises(tmp_path):
 
 
 def test_compute_dtype_other_than_f32_is_refused():
+    """Only float32 and bfloat16 run: float16 is refused by the CLI and by
+    the runtime. bfloat16 runs (tests/test_torch_bf16.py holds its
+    numbers against the JAX package)."""
     with pytest.raises(SystemExit):
         cli.main(["test", "--input_a", "a", "--input_b", "b",
-                  "--compute_dtype", "bfloat16"])
+                  "--compute_dtype", "float16"])
     with pytest.raises(ValueError, match="float32"):
         infer.infer_flow("s", {}, np.zeros((64, 64, 3)), np.zeros((64, 64, 3)),
-                         device="cpu", compute_dtype="bfloat16")
+                         device="cpu", compute_dtype="float16")
+    model = get_model("s").build("cpu")
+    tree = warmstart.random_jax_params(model, seed=0)
+    flow = infer.infer_flow("s", tree, np.zeros((64, 64, 3)),
+                            np.zeros((64, 64, 3)), device="cpu",
+                            compute_dtype="bfloat16")
+    assert flow.dtype == np.float32 and flow.shape == (64, 64, 2)
+    assert np.isfinite(flow).all()
 
 
 def test_pad_to_multiple_edge_pads_and_crops(rng):

@@ -156,3 +156,59 @@ def test_flownet_c_on_card_matches_cpu(gen):
     scale = max(1.0, float(want.abs().mean()))
     # tests/test_golden.py:96-99
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=5e-3 * scale)
+
+
+def _epe(a, b):
+    return float(((a - b) ** 2).sum(-1).sqrt().mean())
+
+
+def test_flownet_c_bf16_on_card_matches_cpu(gen):
+    """The bf16 policy on the card: one forward launch on bf16 features,
+    f32 flow, as far from the f32 CPU flow as the bf16 CPU path is (within
+    1.5x: cuDNN sums and rounds in other places)."""
+    model = flownet_c.FlowNetC()
+    tree = warmstart.random_jax_params(model, seed=0)
+    card = common.cast_params_for_inference(infer.load_model("c", tree, "cuda"))
+    cpu = infer.load_model("c", tree, "cpu")
+    images = torch.rand((2, 2, 64, 128, 3), generator=gen, device="cuda")
+    before = dict(correlation_kernel.LAUNCHES_BY_DTYPE)
+    got = infer.forward_flow(card, images[0], images[1], torch.bfloat16)
+    assert correlation_kernel.LAUNCHES_BY_DTYPE["bfloat16"] == \
+        before["bfloat16"] + 1
+    assert correlation_kernel.LAUNCHES_BY_DTYPE["float32"] == before["float32"]
+    a, b = images[0].cpu(), images[1].cpu()
+    want = infer.forward_flow(cpu, a, b)
+    cpu_bf16 = infer.forward_flow(cpu, a, b, torch.bfloat16)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert _epe(got.cpu(), want) <= 1.5 * _epe(cpu_bf16, want)
+
+
+def test_flownet_c_bf16_loss_gradient_on_card(gen):
+    """A bf16 FlowNetC loss gradient on the card: one backward launch on
+    bf16 features, f32 gradients on the f32 masters, all finite, and
+    their distance to the f32 CPU gradients within 1.5x the bf16 CPU
+    gradients' (relative L2 over all leaves)."""
+    model = flownet_c.FlowNetC()
+    tree = warmstart.random_jax_params(model, seed=0)
+    images = torch.rand((2, 2, 64, 128, 3), generator=gen, device="cuda")
+    flow = torch.randn((2, 64, 128, 2), generator=gen, device="cuda") * 3
+    grads = {}
+    for device, cd in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                       ("cpu", torch.float32)):
+        m = infer.load_model("c", tree, device).train()
+        inputs = {"input_a": images[0].to(device),
+                  "input_b": images[1].to(device)}
+        before = correlation_kernel.BWD_LAUNCHES_BY_DTYPE["bfloat16"]
+        with common.f32_policy():
+            flownet_c.loss(flow.to(device), m(inputs, cd)).backward()
+        if device == "cuda":
+            assert correlation_kernel.BWD_LAUNCHES_BY_DTYPE["bfloat16"] == \
+                before + 1
+        assert all(p.grad.dtype == torch.float32 for p in m.parameters())
+        grads[device, cd] = torch.cat([p.grad.cpu().ravel()
+                                       for p in m.parameters()])
+    ref = grads["cpu", torch.float32]
+    card = grads["cuda", torch.bfloat16]
+    assert torch.isfinite(card).all()
+    rel = lambda g: float((g - ref).norm() / ref.norm())  # noqa: E731
+    assert rel(card) <= 1.5 * rel(grads["cpu", torch.bfloat16])

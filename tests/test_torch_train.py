@@ -522,9 +522,12 @@ SMOKE_SCHEDULE = {"name": "smoke", "step_values": [40],
 
 
 def _cfg(tmp_path, name, **kw):
+    # the f32 path these tests were written for (the trainer's default is
+    # bf16; tests/test_torch_bf16.py covers that)
     base = dict(model="s", schedule=SMOKE_SCHEDULE,
                 log_dir=str(tmp_path / name), device="cpu", log_every=1000,
-                checkpoint_every=0, tensorboard=False)
+                checkpoint_every=0, tensorboard=False,
+                compute_dtype="float32")
     base.update(kw)
     return TrainConfig(**base)
 
@@ -632,7 +635,8 @@ def _train_args(tmp_path, *extra):
     return ["train", "--model", "s", "--synthetic", "--synthetic_size", "2",
             "--synthetic_height", "64", "--synthetic_width", "64",
             "--batch_size", "2", "--schedule", "short", "--log_every", "1",
-            "--log_dir", str(tmp_path / "run"), *extra]
+            "--log_dir", str(tmp_path / "run"), "--compute_dtype", "float32",
+            *extra]
 
 
 def test_cli_train_cpu_synthetic_loss_decreases(tmp_path, capsys):
@@ -683,8 +687,13 @@ def test_interrupted_fit_saves_its_step(tmp_path):
 def test_cli_train_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="ROADMAP Queue 1 item 19"):
         cli.main(["train", "--model", "s", "--device", "cpu"])
+    # float32 and bfloat16 train (tests/test_torch_bf16.py); no other dtype
     with pytest.raises(SystemExit):
-        cli.main(_train_args(tmp_path, "--compute_dtype", "bfloat16"))
+        cli.main(_train_args(tmp_path, "--compute_dtype", "float16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(_cfg(tmp_path, "f16", compute_dtype="float16"))
+    assert Trainer(_cfg(tmp_path, "bf16", compute_dtype="bfloat16")
+                   ).compute_dtype == torch.bfloat16
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda.is_available"):
             cli.main(_train_args(tmp_path, "--device", "cuda"))
