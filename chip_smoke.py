@@ -10,8 +10,10 @@ two paths through its CLI at full published widths from seeded random
 weights:
 
 * phases 1-3, inference: the correlation forward kernel against its plain
-  version; FlowNet2 f32 through ``cli test`` on the bundled sample pair,
-  held against the plain CPU path; FlowNet2 timed at 448x1024;
+  version on the path shapes and the tiling's edge cases, two launches
+  bitwise equal, timed beside its bound; FlowNet2 f32 through ``cli test``
+  on the bundled sample pair, held against the plain CPU path; FlowNet2
+  timed at 448x1024;
 * phases 4-6, training: the correlation backward kernel against autograd
   of the plain version; FlowNetC trained 20 steps in f32 through ``cli
   train`` at the FlyingChairs crop 320x448, batch 8, then resumed, then a
@@ -21,12 +23,19 @@ weights:
   bfloat16``, held against the plain CPU path; FlowNet2 bf16 timed at
   448x1024, batch 1 and 8; phase 5's training path again at ``cli
   train``'s bf16 default, and the bf16 FlowNetC train step timed. The
-  correlation kernels take bf16 features there.
+  correlation kernels take bf16 features there; a profile of the b8
+  forward and of the train step gives their device time in the model.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after, the bf16 paths' by the dtype of the features the kernels took.
 Every phase raises on failure; the exit code is then non-zero and no
 result line is printed.
+
+A kernel's time is its device time: the launches are queued behind a
+``torch.cuda._sleep`` so the host's launch cost is hidden. Its bound is
+the least time the card could take for the same work: the larger of the
+bytes (each input read once, each output written once) over HBM and the
+in-frame multiply-adds over the peak rate for the inputs' type.
 
 The last two lines of stdout are one JSON object with each kernel's
 numbers, then ``{"ok": true, "device": {...}}``. It exits non-zero without
@@ -61,6 +70,11 @@ FLOW_RTOL, FLOW_ATOL = 1e-3, 5e-3
 # the bf16 card flow's mean EPE to the f32 CPU flow, against the bf16 CPU
 # flow's: the card rounds in other places (cuDNN's sums, fused biases)
 BF16_EPE_RATIO = 1.5
+
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s, and FLOP/s for f32 without tensor cores and for dense bf16
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 CORR_SOURCE = "flownet2_tf_tpu_torch/csrc/correlation.cu"
 CORR_REPLACES = "flownet2_tf_tpu/ops/pallas/correlation_kernel.py:53"
@@ -113,6 +127,90 @@ def cuda_time_ms(fn, runs, warmup=3):
     return times
 
 
+def device_ms(fn, launches=20, reps=5, warmup=3):
+    """Device time (ms) of one call of ``fn``: median over ``reps`` runs of
+    ``launches`` calls queued behind a sleep kernel, timed with CUDA
+    events, so that the host's launch cost is hidden."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 50_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    sleep_s = start.elapsed_time(end) / 1000.0
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        if time.perf_counter() - t0 > sleep_s:
+            raise AssertionError("the host took longer to queue the launches "
+                                 "than the card slept: not a device time")
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return times
+
+
+def corr_bound(shape, d, s2, dtype, backward=False):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one correlation call (forward, or the da and db backward) at
+    ``shape``: bytes over HBM_BPS, in-frame multiply-adds over
+    PEAK_FLOPS[dtype], whichever is larger."""
+    n, h, w, c = shape
+    r = d // s2
+    item = 4 if dtype == "float32" else 2
+    # in-frame (pixel, displacement) pairs: the axes are independent
+    rows = sum(max(0, h - abs(k) * s2) for k in range(-r, r + 1))
+    cols = sum(max(0, w - abs(k) * s2) for k in range(-r, r + 1))
+    macs = n * c * rows * cols
+    feat = n * h * w * c * item
+    cost_volume = n * h * w * (2 * r + 1) ** 2 * 4
+    if backward:  # read g, a, b; write da, db; each gradient takes the MACs
+        nbytes, flops = cost_volume + 4 * feat, 4 * macs
+    else:  # read a, b; write the f32 cost volume
+        nbytes, flops = 2 * feat + cost_volume, 2 * macs
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profile_ms(fn):
+    """Device ms per kernel name over one call of ``fn``, from
+    ``torch.profiler``; the sum of them all is the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            out[e.key] = out.get(e.key, 0.0) + us / 1000.0
+    return out
+
+
+def corr_profile_ms(fn):
+    """(busy ms, {forward, backward da, backward db: ms}) of one call."""
+    kernels = profile_ms(fn)
+    names = {"forward": "correlation_fwd", "da": "correlation_bwd_da",
+             "db": "correlation_bwd_db"}
+    return sum(kernels.values()), {
+        k: sum(ms for key, ms in kernels.items() if v in key)
+        for k, v in names.items()}
+
+
 def phase0_device_and_build():
     import torch
 
@@ -134,26 +232,43 @@ def phase0_device_and_build():
 
 
 def phase1_kernel_vs_plain():
-    """The correlation kernel against its plain version, on the card."""
+    """The correlation forward kernel against its plain version, on the
+    card: every case within KERNEL_RTOL/ATOL and two launches bitwise
+    equal; the path shapes timed beside their bound."""
     import torch
 
     from flownet2_tf_tpu_torch.ops.correlation import _correlation_oracle
     from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
 
+    f32, bf16 = torch.float32, torch.bfloat16
+    fnet2 = (1, 56, 128, 256)  # FlowNetC in FlowNet2 at 448x1024
+    conv3 = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 256)  # chairs crop
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [
-        # the FlowNetC shape of FlowNet2 at 448x1024
-        ((1, 56, 128, 256), 20, 2, torch.float32, True),
-        ((1, 56, 128, 256), 20, 2, torch.bfloat16, True),
+        (fnet2, 20, 2, f32, True),
+        (fnet2, 20, 2, bf16, True),
+        (conv3, 20, 2, f32, True),
+        (conv3, 20, 2, bf16, True),
         # off the TPU tiling (W % 8, C % 128)
-        ((2, 8, 12, 64), 4, 1, torch.float32, False),
-        ((2, 8, 12, 64), 4, 2, torch.float32, False),
-        ((1, 12, 20, 96), 4, 1, torch.float32, False),
-        ((1, 12, 20, 96), 4, 2, torch.float32, False),
+        ((2, 8, 12, 64), 4, 1, f32, False),
+        ((2, 8, 12, 64), 4, 2, f32, False),
+        ((1, 12, 20, 96), 4, 1, f32, False),
+        ((1, 12, 20, 96), 4, 2, f32, False),
+        # the kernel's tiling: W not a multiple of the x tile (s2 * 32
+        # pixels), C = 40; s2 = 1 and 3 with N = 2 and an odd H (C = 33:
+        # bf16 rows not 16-byte aligned); D = 37
+        ((1, 12, 100, 40), 20, 2, f32, False),
+        ((1, 12, 100, 40), 20, 2, bf16, False),
+        ((2, 7, 40, 64), 8, 1, f32, False),
+        ((2, 7, 40, 64), 8, 1, bf16, False),
+        ((2, 9, 50, 33), 6, 3, f32, False),
+        ((2, 9, 50, 33), 6, 3, bf16, False),
+        ((1, 4, 6, 40), 36, 2, f32, False),
     ]
     timings = {}
     worst = 0.0
     for shape, d, s2, dtype, timed in cases:
+        name = str(dtype).split(".")[-1]
         a = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         b = torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
@@ -164,32 +279,43 @@ def phase1_kernel_vs_plain():
             # the same bf16-rounded values, promoted to f32 inside
             return _correlation_oracle(a, b, 1, d, 1, s2, d)
 
-        got = kernel()
-        want = plain()
+        got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-        log(f"phase 1: correlation {tuple(shape)} d={d} s2={s2} "
-            f"{str(dtype).split('.')[-1]}: max_abs_err {err:.3e} "
-            f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
+        same = torch.equal(got, again)
+        log(f"phase 1: correlation {tuple(shape)} d={d} s2={s2} {name}: "
+            f"max_abs_err {err:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); "
+            f"two launches bitwise equal: {same}")
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(
                 f"correlation kernel disagrees with its plain version at "
                 f"{shape} d={d} s2={s2} {dtype}: max abs err {err}")
+        if not same:
+            raise AssertionError(
+                f"correlation kernel is not bitwise repeatable at {shape} "
+                f"d={d} s2={s2} {dtype}")
         worst = max(worst, err)
         if timed:
             # in turns, so clocks and neighbours hit both alike
-            k_ms, p_ms = [], []
+            k_ms, c_ms, p_ms = [], [], []
             for _ in range(2):
-                p_ms += cuda_time_ms(plain, 12)
-                k_ms += cuda_time_ms(kernel, 12)
-            timings[str(dtype).split(".")[-1]] = (
-                statistics.median(k_ms), statistics.median(p_ms))
-            log(f"phase 1: median of {len(k_ms)} runs: kernel "
-                f"{statistics.median(k_ms):.4f} ms (min {min(k_ms):.4f}, "
-                f"max {max(k_ms):.4f}), plain "
+                p_ms += cuda_time_ms(plain, 6)
+                k_ms += device_ms(kernel)
+                c_ms += cuda_time_ms(kernel, 12)
+            bound, by = corr_bound(shape, d, s2, name)
+            med = statistics.median(k_ms)
+            timings[tuple(shape), name] = {
+                "ms": med, "plain_ms": statistics.median(p_ms),
+                "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / med}
+            log(f"phase 1: {tuple(shape)} {name}: kernel device time median "
+                f"{med:.4f} ms over {len(k_ms)} runs (min {min(k_ms):.4f}, "
+                f"max {max(k_ms):.4f}); per call with the host's launch "
+                f"{statistics.median(c_ms):.4f} ms; plain "
                 f"{statistics.median(p_ms):.4f} ms (min {min(p_ms):.4f}, "
-                f"max {max(p_ms):.4f})")
+                f"max {max(p_ms):.4f}); bound {bound:.4f} ms ({by}), "
+                f"{100.0 * bound / med:.1f}% of it")
     return worst, timings
 
 
@@ -317,6 +443,14 @@ def inference_numbers(phase, tree, dtype, batches):
                 f"{dtype} features")
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(times)
+        if batch > 1:
+            with torch.inference_mode():
+                busy, corr = corr_profile_ms(lambda: model(inputs, cd))
+            log(f"phase {phase}: profile of one b{batch} forward: "
+                f"{busy:.3f} ms of device time, correlation forward "
+                f"{corr['forward']:.3f} ms")
+            if not corr["forward"] > 0:
+                raise AssertionError("the profile shows no correlation kernel")
         log(f"phase {phase}: FlowNet2 448x1024 b{batch} {dtype}{note}: "
             f"median {med:.3f} ms per batch, {med / batch:.3f} ms/pair over "
             f"{len(times)} runs (min {min(times):.3f}, max "
@@ -389,13 +523,17 @@ def phase4_backward_vs_plain():
             k_ms, p_ms = [], []
             for _ in range(2):  # in turns
                 p_ms += cuda_time_ms(plain, 6, warmup=1)
-                k_ms += cuda_time_ms(kernel, 12)
-            timings[name] = (statistics.median(k_ms), statistics.median(p_ms))
-            log(f"phase 4: median of {len(k_ms)}/{len(p_ms)} runs: kernel "
-                f"{statistics.median(k_ms):.4f} ms (min {min(k_ms):.4f}, "
-                f"max {max(k_ms):.4f}), plain "
-                f"{statistics.median(p_ms):.4f} ms (min {min(p_ms):.4f}, "
-                f"max {max(p_ms):.4f})")
+                k_ms += device_ms(kernel, launches=5)
+            bound, by = corr_bound(shape, d, s2, name, backward=True)
+            med = statistics.median(k_ms)
+            timings[name] = {
+                "ms": med, "plain_ms": statistics.median(p_ms),
+                "bound_ms": bound, "bound_by": by, "bound_share": bound / med}
+            log(f"phase 4: kernel device time median {med:.4f} ms over "
+                f"{len(k_ms)} runs (min {min(k_ms):.4f}, max {max(k_ms):.4f}), "
+                f"plain {statistics.median(p_ms):.4f} ms (min {min(p_ms):.4f}, "
+                f"max {max(p_ms):.4f}); bound {bound:.4f} ms ({by}), "
+                f"{100.0 * bound / med:.1f}% of it")
     return worst, timings
 
 
@@ -528,6 +666,12 @@ def train_step_numbers(phase, dtype, bwd_ms):
     if correlation_kernel.BWD_LAUNCHES_BY_DTYPE[dtype] - before != 16:
         raise AssertionError(f"timed steps did not launch the backward on "
                              f"{dtype} features")
+    busy, corr = corr_profile_ms(step)
+    log(f"phase {phase}: profile of one {dtype} train step: {busy:.3f} ms of "
+        f"device time, correlation forward {corr['forward']:.3f} ms, backward "
+        f"da {corr['da']:.3f} + db {corr['db']:.3f} ms")
+    if not min(corr.values()) > 0:
+        raise AssertionError("the profile misses a correlation kernel")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite train metrics {metrics}")
     peak = torch.cuda.max_memory_allocated()
@@ -587,15 +731,17 @@ def main():
         bwd_worst, bwd_timings = phase4_backward_vs_plain()
         with tempfile.TemporaryDirectory() as train_tmp:
             training_path(5, train_tmp, "float32")
-        train_step_numbers(6, "float32", bwd_timings["float32"][0])
+        train_step_numbers(6, "float32", bwd_timings["float32"]["ms"])
         phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu)
     inference_numbers(8, tree, "bfloat16", (1, 8))
     with tempfile.TemporaryDirectory() as tmp:
         training_path(9, tmp, "bfloat16")
-    train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"][0])
+    train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"]["ms"])
 
-    k_ms, p_ms = timings["float32"]
-    bk_ms, bp_ms = bwd_timings["float32"]
+    # the headline numbers are the f32 main path's: FlowNet2 (forward) and
+    # FlowNetC training (backward); every timed case is listed beside them
+    fwd = timings[(1, 56, 128, 256), "float32"]
+    bwd = bwd_timings["float32"]
     log(json.dumps({"kernels": [{
         "name": "correlation_fwd",
         "route": "cuda",
@@ -604,8 +750,10 @@ def main():
         "launches": sum(PATH_LAUNCHES["fwd"].values()),
         "launches_by_dtype": PATH_LAUNCHES["fwd"],
         "max_abs_err": worst,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        **fwd,
+        "library_ms": None,  # no PyTorch call computes a banded correlation
+        "cases": [{"shape": list(shape), "dtype": dtype, **t}
+                  for (shape, dtype), t in timings.items()],
     }, {
         "name": "correlation_bwd",
         "route": "cuda",
@@ -614,8 +762,10 @@ def main():
         "launches": sum(PATH_LAUNCHES["bwd"].values()),
         "launches_by_dtype": PATH_LAUNCHES["bwd"],
         "max_abs_err": bwd_worst,
-        "ms": bk_ms,
-        "plain_ms": bp_ms,
+        **bwd,
+        "library_ms": None,
+        "cases": [{"shape": [TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 256],
+                   "dtype": dtype, **t} for dtype, t in bwd_timings.items()],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,6 +9,10 @@ differentiates the jnp oracle. Here ``_CorrelationFn`` is the
 the backward kernels gather ``da`` and ``db`` from them and the f32
 cost-volume gradient, and return them in the input dtype like ``_bwd``.
 
+The forward launches ``correlation_fwd_f32_kernel`` (exact FFMA) or
+``correlation_fwd_bf16_kernel`` (``mma.sync`` on tensor cores) by the
+features' dtype; both return the f32 cost volume.
+
 * A CPU tensor takes the plain version,
   ``ops/correlation.py::_correlation_oracle``, and autograd through it
   (exactly what ``_bwd`` differentiates).

@@ -82,6 +82,53 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_port_runs_on_the_cpu_without_triton_or_nvcc(tmp_path):
+    """On a machine with neither ``triton`` nor ``nvcc``, every port module
+    imports and a CPU correlation returns the plain version's result: no
+    module imports triton or builds a kernel before a CUDA launch."""
+    build_dir = os.path.join(ROOT, "flownet2_tf_tpu_torch", "_build")
+
+    def listing():
+        return sorted(os.listdir(build_dir)) if os.path.isdir(build_dir) else None
+
+    before = listing()
+    code = (
+        "import sys\n"
+        "sys.modules['triton'] = None  # import triton raises ImportError\n"
+        "import numpy as np, torch\n"
+        "import flownet2_tf_tpu_torch, flownet2_tf_tpu_torch.cli\n"
+        "import flownet2_tf_tpu_torch.training.infer\n"
+        "import flownet2_tf_tpu_torch.models.stacks\n"
+        "import flownet2_tf_tpu_torch.ops.cuda.correlation_kernel as ck\n"
+        "import flownet2_tf_tpu_torch.training.loop\n"
+        "import flownet2_tf_tpu_torch.data.loader\n"
+        "import flownet2_tf_tpu_torch.data.augmentation\n"
+        "import flownet2_tf_tpu_torch.data.dataset_configs\n"
+        "import flownet2_tf_tpu_torch.utils.tensorboard\n"
+        "from flownet2_tf_tpu_torch.ops import correlation as tc\n"
+        "from flownet2_tf_tpu_torch.ops.cuda import _build\n"
+        "rng = np.random.RandomState(0)\n"
+        "a, b = (torch.from_numpy(rng.randn(1, 5, 9, 12).astype(np.float32))\n"
+        "        for _ in range(2))\n"
+        "got = tc.correlation(a, b, 1, 4, 1, 2, 4)\n"
+        "want = tc._correlation_oracle(a, b, 1, 4, 1, 2, 4)\n"
+        "assert got.shape == (1, 5, 9, 25) and torch.equal(got, want)\n"
+        "assert ck.LAUNCHES == 0 and not _build._loaded, _build._loaded\n"
+        "assert sys.modules['triton'] is None\n"
+        "print('ok')\n"
+    )
+    no_tools = tmp_path / "bin"
+    no_tools.mkdir()
+    env = dict(os.environ, PATH=str(no_tools), CUDA_HOME=str(no_tools))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env=env,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert listing() == before  # nothing was built
+
+
 def test_cuda_device_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -35,7 +35,19 @@ def gen():
         ((2, 8, 12, 64), 4, 1, torch.float32),  # off the TPU tiling
         ((1, 12, 20, 96), 4, 2, torch.float32),
         ((1, 5, 7, 33), 6, 3, torch.float32),  # D=5, C not a warp multiple
-        ((1, 4, 6, 40), 36, 2, torch.float32),  # D=37 > 32: two store groups
+        ((1, 4, 6, 40), 36, 2, torch.float32),  # D=37 > 32
+        ((8, 40, 56, 256), 20, 2, torch.float32),  # FlowNetC conv3, chairs b8
+        ((8, 40, 56, 256), 20, 2, torch.bfloat16),
+        # W not a multiple of the x tile (s2 * 32 pixels), C = 40
+        ((1, 12, 100, 40), 20, 2, torch.float32),
+        ((1, 12, 100, 40), 20, 2, torch.bfloat16),
+        # s2 = 1, N = 2 with an odd H (rows tiled in pairs)
+        ((2, 7, 40, 64), 8, 1, torch.float32),
+        ((2, 7, 40, 64), 8, 1, torch.bfloat16),
+        # s2 = 3; C = 33: bf16 rows not 16-byte aligned
+        ((2, 9, 50, 33), 6, 3, torch.float32),
+        ((2, 9, 50, 33), 6, 3, torch.bfloat16),
+        ((1, 1, 9, 16), 4, 2, torch.bfloat16),  # H = 1: one row per block
     ],
 )
 def test_kernel_matches_plain_version(gen, shape, d, s2, dtype):
@@ -44,11 +56,14 @@ def test_kernel_matches_plain_version(gen, shape, d, s2, dtype):
     before = correlation_kernel.LAUNCHES
     got = tcorr.correlation(a, b, 1, d, 1, s2, d)
     assert correlation_kernel.LAUNCHES == before + 1
+    again = tcorr.correlation(a, b, 1, d, 1, s2, d)
     want = tcorr._correlation_oracle(a, b, 1, d, 1, s2, d)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
     # the same (bf16-rounded) values summed in another f32 order
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # each output element summed in a fixed order and written once
+    assert torch.equal(got, again)
 
 
 def test_out_of_family_raises_on_cuda(gen):
