@@ -14,11 +14,13 @@ weights:
   bitwise equal, timed beside its bound; FlowNet2 f32 through ``cli test``
   on the bundled sample pair, held against the plain CPU path; FlowNet2
   timed at 448x1024;
-* phases 4-6, training: the correlation backward kernel against autograd
-  of the plain version; FlowNetC trained 20 steps in f32 through ``cli
-  train`` at the FlyingChairs crop 320x448, batch 8, then resumed, then a
-  FlowNetCS warm-started from it with FlowNetC frozen; the FlowNetC f32
-  train step timed;
+* phases 4-6, training: the correlation backward kernels (da and db)
+  against autograd of the plain version on the path shape and the
+  tiling's edge cases in f32 and bf16, two launches bitwise equal, timed
+  beside their bound with da and db apart; FlowNetC trained 20 steps in
+  f32 through ``cli train`` at the FlyingChairs crop 320x448, batch 8,
+  then resumed, then a FlowNetCS warm-started from it with FlowNetC
+  frozen; the FlowNetC f32 train step timed;
 * phases 7-9, the bf16 policy: FlowNet2 through ``cli test --compute_dtype
   bfloat16``, held against the plain CPU path; FlowNet2 bf16 timed at
   448x1024, batch 1 and 8; phase 5's training path again at ``cli
@@ -459,22 +461,37 @@ def inference_numbers(phase, tree, dtype, batches):
 
 
 def phase4_backward_vs_plain():
-    """The correlation backward kernel against autograd of its plain
-    version (what the JAX package's _bwd differentiates), on the card."""
+    """The correlation backward kernels against autograd of their plain
+    version (what the JAX package's _bwd differentiates), on the card: the
+    path shape and the tiling's edge cases in f32 and bf16, two launches
+    bitwise equal; the path shape timed beside its bound, with da's and
+    db's device time apart from the profiler."""
     import torch
 
     from flownet2_tf_tpu_torch.ops.correlation import _correlation_oracle
     from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    f32, bf16 = torch.float32, torch.bfloat16
     conv3 = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 256)
     cases = [
-        (conv3, 20, 2, torch.float32, True),
-        (conv3, 20, 2, torch.bfloat16, True),
-        ((2, 8, 12, 64), 4, 1, torch.float32, False),
-        ((2, 8, 12, 64), 4, 2, torch.float32, False),
-        ((1, 12, 20, 96), 4, 1, torch.float32, False),
-        ((1, 12, 20, 96), 4, 2, torch.float32, False),
+        (conv3, 20, 2, f32, True),
+        (conv3, 20, 2, bf16, True),
+        # off the TPU tiling (W % 8, C % 128)
+        ((2, 8, 12, 64), 4, 1, f32, False),
+        ((2, 8, 12, 64), 4, 2, f32, False),
+        ((1, 12, 20, 96), 4, 1, f32, False),
+        ((1, 12, 20, 96), 4, 2, f32, False),
+    ] + [
+        # the kernels' tiling, in both dtypes: W not a multiple of the x
+        # tile (s2 * 32 pixels), C = 40; s2 = 1 and 3 with N = 2 and an odd
+        # H (C = 33: rows not 16-byte aligned); H = 1; D = 37 with C > 2
+        # channel chunks; D*D = 2025
+        (shape, d, s2, dtype, False)
+        for shape, d, s2 in [((1, 12, 100, 40), 20, 2), ((2, 7, 40, 64), 8, 1),
+                             ((2, 9, 50, 33), 6, 3), ((1, 1, 9, 16), 4, 2),
+                             ((1, 4, 6, 300), 36, 2), ((1, 9, 9, 40), 22, 1)]
+        for dtype in (f32, bf16)
     ]
     timings = {}
     worst = 0.0
@@ -495,7 +512,7 @@ def phase4_backward_vs_plain():
 
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
-        rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if dtype == torch.float32
+        rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if dtype == f32
                       else (BF16_RTOL, BF16_ATOL))
         name = str(dtype).split(".")[-1]
         errs = []
@@ -517,23 +534,30 @@ def phase4_backward_vs_plain():
         log(f"phase 4: correlation backward {tuple(shape)} d={d} s2={s2} "
             f"{name}: max_abs_err da {errs[0]:.3e} db {errs[1]:.3e} (rtol "
             f"{rtol}, atol {atol}); two runs bitwise equal")
-        if dtype == torch.float32:
+        if dtype == f32:
             worst = max(worst, *errs)
         if timed:
             k_ms, p_ms = [], []
             for _ in range(2):  # in turns
                 p_ms += cuda_time_ms(plain, 6, warmup=1)
                 k_ms += device_ms(kernel, launches=5)
+            calls = 5
+            _, split = corr_profile_ms(lambda: [kernel() for _ in range(calls)])
             bound, by = corr_bound(shape, d, s2, name, backward=True)
             med = statistics.median(k_ms)
             timings[name] = {
                 "ms": med, "plain_ms": statistics.median(p_ms),
-                "bound_ms": bound, "bound_by": by, "bound_share": bound / med}
-            log(f"phase 4: kernel device time median {med:.4f} ms over "
-                f"{len(k_ms)} runs (min {min(k_ms):.4f}, max {max(k_ms):.4f}), "
-                f"plain {statistics.median(p_ms):.4f} ms (min {min(p_ms):.4f}, "
-                f"max {max(p_ms):.4f}); bound {bound:.4f} ms ({by}), "
-                f"{100.0 * bound / med:.1f}% of it")
+                "bound_ms": bound, "bound_by": by, "bound_share": bound / med,
+                "da_ms": split["da"] / calls, "db_ms": split["db"] / calls}
+            log(f"phase 4: kernels' device time median {med:.4f} ms over "
+                f"{len(k_ms)} runs (min {min(k_ms):.4f}, max {max(k_ms):.4f});"
+                f" profiler: da {split['da'] / calls:.4f} ms, db "
+                f"{split['db'] / calls:.4f} ms per call; plain "
+                f"{statistics.median(p_ms):.4f} ms (min {min(p_ms):.4f}, "
+                f"max {max(p_ms):.4f}); bound of da and db {bound:.4f} ms "
+                f"({by}), {100.0 * bound / med:.1f}% of it")
+            if not (split["da"] > 0 and split["db"] > 0):
+                raise AssertionError("the profile misses a backward kernel")
     return worst, timings
 
 

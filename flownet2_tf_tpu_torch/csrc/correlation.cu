@@ -66,35 +66,69 @@
 //
 // Replaces the TPU backward flownet2_tf_tpu/ops/pallas/correlation_kernel.py
 // _bwd (lines 147-160), which differentiates the jnp oracle. With g the f32
-// gradient of the (N, H, W, D*D) cost volume and only in-frame terms:
+// gradient of the (N, H, W, D*D) cost volume, delta_k = ((k/D - r)*s2,
+// (k%D - r)*s2) and only in-frame terms:
 //
-//   da[n,y,x,c] = (1/C) sum_{i,j<D} g[n,y,x,iD+j] * b[n, y+(i-r)s2, x+(j-r)s2, c]
-//   db[n,y,x,c] = (1/C) sum_{i,j<D} g[n, y-(i-r)s2, x-(j-r)s2, iD+j]
-//                                   * a[n, y-(i-r)s2, x-(j-r)s2, c]
+//   da[p, c] = (1/C) sum_k g[p, k] * b[p + delta_k, c]
+//   db[q, c] = (1/C) sum_k g[q - delta_k, k] * a[q - delta_k, c]
 //
-// Both are written as gathers: each output element is summed and written
-// by one thread in a fixed order, with no atomics, so two runs give
-// bitwise-equal gradients. da and db come out in the input dtype, like
-// _bwd's cast; accumulation is f32.
+// Since delta_{D*D-1-k} = -delta_k, db is da's computation on a mirror-
+// shifted gradient g'[q, k] = g[q + delta_k, D*D-1-k] (zero where q +
+// delta_k is outside the frame): db[q, c] = (1/C) sum_k g'[q, k] *
+// a[q + delta_k, c]. So one kernel body computes
 //
-// What bounds it: like the forward, every output pixel reads D*D pixels of
-// the other operand across all C channels (FlowNetC's conv3 at the
-// 320x448 chairs crop, (8, 40, 56, 256), D=21: 441 x 1 KB per pixel, ~8 GB
-// of L1/L2 reads per gradient, against ~70 MB of HBM traffic for g, the
-// other operand and the output), so it is bound by L1/L2 re-reads and their
-// latency, not by HBM bandwidth or FMAs.
+//   out[p, c] = (1/C) sum_k G[p, k] * S[p + delta_k, c]
 //
-// Design (simple and correct first): one warp per output pixel (n, y, x).
-// The warp first stages the D*D gradient values that pixel needs in shared
-// memory, the lanes loading in parallel: for da they are the pixel's own
-// contiguous g row; for db they are gathered from D*D neighbouring pixels,
-// one value each. It then loops over the displacements; for each in-frame
-// source pixel the lanes stride over C with coalesced 128-byte loads and
-// keep kChanPerLane f32 accumulators each in registers, so one pass covers
-// 256 channels and the staged g value is a shared-memory broadcast. Wider C
-// takes more passes; D*D above kStage is staged in chunks. Offsets are
-// 64-bit. Keeping a tile of the other operand in shared memory, so that
-// neighbouring pixels share its re-reads, is later work.
+// as correlation_bwd_da_kernel (G = g, S = b) and correlation_bwd_db_kernel
+// (G = g', S = a). db's kernel stages g' straight from g: g'[q, k] for the
+// dy index k/D of one S row reads D consecutive floats of the g row of the
+// window pixel q + delta_k, as da's reads D of its own pixel's, so g' is
+// never written out. da and db come out in the input dtype, like _bwd's
+// cast; sums are f32.
+//
+// What bounds it: at FlowNetC's chairs-crop conv3, (8, 40, 56, 256) with
+// d=20, s2=2, each gradient takes 1.21 G in-frame multiply-adds, 36 us of
+// f32 FMA at 67 TFLOP/s; g, a and b read once and da, db written once are
+// 68 MB in f32 and 50 MB in bf16, 20 and 15 us at 3.35 TB/s. So f32 is
+// bound by FMAs and bf16 by bytes. As in the forward, what a kernel has to
+// avoid is the re-reads: every output pixel meets 441 pixels of S.
+//
+// Design: the forward's geometry with the roles of C and the band swapped.
+// A block owns pixels x = x0 + cls + s2*i (i < 32) of one residue class
+// cls mod s2, in up to four output rows y0 + s2*t, and 64 (f32) or 128
+// (bf16) channels. It walks the S rows sy = y0 + (k - r)*s2 in frame;
+// output row t reads S row k at dy index k - t, so the block's rows share
+// every S window it stages. Per S row it stages, with cp.async, double
+// buffered, zero-filled outside the frame, the S window (the class's
+// pixels j = i + dx, 16-byte copies) and each output row's D-wide slice of
+// G (4-byte copies: a pixel's g row is 1764 bytes, so the slices are not
+// 16-byte aligned; one walk of the slice's addresses serves all the
+// block's rows). The G slab is skewed (pixel group i/8, column i%8 + dx,
+// entry i%8), so that for one window pixel j the G values of 8
+// consecutive pixels are contiguous; its positions outside the band are
+// zeroed once. Per row and S row the work is then a banded product,
+// out(i, c) += sum_j G(i, j - i) S(j, c) over 0 <= j - i < D: M = pixels,
+// N = channels, K = band columns. The sums stay in registers across all S
+// rows; each output element is summed in a fixed order and written once:
+// no atomics, and two launches are bitwise equal.
+// * f32 (exact, no TF32): a thread owns 8 pixels x 8 channels; per window
+//   pixel it loads the S row's 8 channels (2 float4) and the 8 pixels' G (2
+//   float4, a broadcast) for 64 FFMAs, D + 7 steps per S row (D of them in
+//   each pixel's band: 75% at D = 21).
+// * bf16: a warp owns 16 pixels x 128 channels and runs mma.sync m16n8k16
+//   (bf16 in, f32 accumulate) on the ceil((16 + D - 1) / 16) k16 chunks of
+//   window pixels that meet the band (3 at D = 21). B is the S window
+//   through ldmatrix.trans; A, the band of G, is built in registers from
+//   the f32 slab as two bf16 fragments, hi = bf16(g) and lo = bf16(g - hi),
+//   both multiplied into one f32 accumulator. Every product is exact in
+//   f32 and hi + lo keeps 16 bits of g; one bf16 rounding of g misses the
+//   plain version's bf16 gradients (tests/test_torch_corr_bwd.py). Building
+//   A costs as many instructions as the products it feeds, so a warp
+//   spreads each A over 16 n8 tiles (128 channels; 64 measured slower).
+// Rows that are not 16-byte aligned are staged by element copies, as in
+// the forward. What bounds it now (PERF.md): instruction issue, the 4-byte
+// G copies and the A fragments, not FMAs, tensor cores or bytes.
+// Offsets into the tensors are 64-bit.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,13 +137,6 @@
 #include <algorithm>
 
 namespace {
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-constexpr int kWarpsPerBlock = 8;  // backward
 
 // ---- forward ----
 
@@ -294,20 +321,21 @@ __device__ __forceinline__ void stage_chunk(const FwdParams& p,
 
 // The chunk loop, double buffered: chunk s + 1 is staged into one buffer
 // while chunk s, in the other, is computed, so its copies overlap those
-// products. compute(stage) runs once every thread's copies of the stage
-// have landed.
+// products. compute(s, stage) runs once every thread's copies of the stage
+// have landed. ns must be the same in every thread of the block.
 template <typename Stage, typename Compute>
-__device__ __forceinline__ void chunk_pipeline(const FwdParams& p,
-                                               unsigned char* smem, int ns,
+__device__ __forceinline__ void chunk_pipeline(unsigned char* smem,
+                                               int stage_bytes, int ns,
                                                Stage stage, Compute compute) {
+  if (ns <= 0) return;
   stage(0, smem);
   cp_async_commit();
   for (int s = 0; s < ns; ++s) {
-    if (s + 1 < ns) stage(s + 1, smem + ((s + 1) & 1) * p.stage_bytes);
+    if (s + 1 < ns) stage(s + 1, smem + ((s + 1) & 1) * stage_bytes);
     cp_async_commit();  // empty after the last chunk: one group per chunk
     cp_async_wait<1>();
     __syncthreads();
-    compute(smem + (s & 1) * p.stage_bytes);
+    compute(s, smem + (s & 1) * stage_bytes);
     __syncthreads();  // the next copies overwrite this buffer
   }
 }
@@ -389,12 +417,12 @@ correlation_fwd_f32_kernel(const FwdParams p) {
 
     if (any) {
       chunk_pipeline(
-          p, smem, ns,
+          smem, p.stage_bytes, ns,
           [&](int s, unsigned char* stage) {
             stage_chunk<float, kF32Ck / 4>(p, tab, bp.img, s * kF32Ck, stage,
                                            p.str, 1);
           },
-          [&](const unsigned char* stage) {
+          [&](int, const unsigned char* stage) {
             if (!work) return;
             const float4* st = reinterpret_cast<const float4*>(stage);
 #pragma unroll
@@ -515,12 +543,12 @@ correlation_fwd_bf16_kernel(const FwdParams p) {
 
     if (any) {
       chunk_pipeline(
-          p, smem, ns,
+          smem, p.stage_bytes, ns,
           [&](int s, unsigned char* stage) {
             stage_chunk<__nv_bfloat16, kBfCk / 8>(p, tab, bp.img, s * kBfCk,
                                                   stage, 1, kBfRow / 16);
           },
-          [&](const unsigned char* st) {
+          [&](int, const unsigned char* st) {
             if (!work) return;  // warp-uniform
 #pragma unroll
             for (int kk = 0; kk < kBfCk / 16; ++kk) {
@@ -651,122 +679,423 @@ int launch_fwd(const void* a, const void* b, float* out, int n, int h, int w,
   return (int)cudaGetLastError();
 }
 
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// ---- backward ----
+
+constexpr int kBwdYt = 4;       // most output rows per block
+constexpr int kBwdCbF32 = 64;   // channels per block, f32
+constexpr int kBwdCbBf = 128;   // channels per block (and per warp), bf16
+constexpr int kBwdRowBf = 2 * kBwdCbBf + 16;  // bytes per staged S row, bf16
+constexpr int kGCol = 12;  // floats per skewed G column: 8 pixels and a pad
+
+// Geometry of one da-form launch, computed on the host (launch_bwd).
+struct BwdParams {
+  const float* g;    // G: (n, h, w, D*D) f32
+  const void* s;     // S: (n, h, w, c), f32 or bf16
+  void* out;         // (n, h, w, c), S's dtype
+  int h, w, c;
+  int r, s2, dd;     // dd = D = 2r + 1
+  int yt;            // output rows per block: y0 + s2*t, t < yt
+  int ytiles;        // row tiles per image
+  int xtiles;        // x tiles per image row
+  int cb;            // channels per block
+  int cchunks;       // channel chunks of cb
+  int jb;            // staged window pixels of the block's class
+  int pj;            // skewed G columns per pixel group: D + 7
+  int pgs;           // floats between the pixel groups of a G slab
+  int s_bytes;       // the S window's bytes in a stage; the G slab follows
+  int stage_bytes;   // one stage
+  int aligned16;     // S rows, bases and outputs 16-byte aligned
+  float inv_c;
+};
+
+// A block owns pixels x = x0 + cls + s2*i (i < kXi) of output rows y0 +
+// s2*t (t < rows <= yt, the rows in frame), channels [c0, c0 + cb),
+// and walks the S rows k in [k_lo, k_hi): y0 + (k - r)*s2 in frame, read
+// by a row in frame.
+struct BwdPos {
+  int y0, x0, cls, c0;
+  int rows, k_lo, k_hi;
+  int64_t img;  // first pixel of image n
+};
+
+__device__ __forceinline__ BwdPos bwd_pos(const BwdParams& p) {
+  int blk = blockIdx.x;
+  BwdPos bp;
+  bp.c0 = (blk % p.cchunks) * p.cb;
+  blk /= p.cchunks;
+  bp.cls = blk % p.s2;
+  blk /= p.s2;
+  bp.x0 = (blk % p.xtiles) * p.s2 * kXi;
+  blk /= p.xtiles;
+  const int ytl = blk % p.ytiles;
+  bp.img = (int64_t)(blk / p.ytiles) * p.h * p.w;
+  const int res = ytl % p.s2;  // y0 = res + s2*q
+  const int q = (ytl / p.s2) * p.yt;
+  bp.y0 = res + p.s2 * q;
+  // S row k is res + s2*(q + k - r); output row t reads k in [t, t + D)
+  bp.rows = bp.y0 < p.h ? min(p.yt, (p.h - 1 - bp.y0) / p.s2 + 1) : 0;
+  bp.k_lo = max(0, p.r - q);
+  bp.k_hi = bp.rows ? min(bp.rows - 1 + p.dd,
+                          p.r - q + (p.h - 1 - res) / p.s2 + 1)
+                    : bp.k_lo;
+  return bp;
 }
 
-constexpr int kChanPerLane = 8;  // 32 lanes x 8 = 256 channels per pass
-constexpr int kStage = 448;      // staged g values per warp (>= 441 = 21^2)
+// cp.async of 4 bytes, or of 4 zero bytes when bytes is 0.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
 
-// One warp computes out[pix, :] = da (kDb false: src = b, g of pix itself)
-// or db (kDb true: src = a, g gathered from the displaced pixels).
-template <typename T, bool kDb>
-__device__ __forceinline__ void correlation_bwd_pixel(
-    const float* __restrict__ g, const T* __restrict__ src,
-    T* __restrict__ out, float* g_s, int64_t pix, int h, int w, int c,
-    int r, int s2) {
-  const int d = 2 * r + 1;
-  const int dd = d * d;
-  const int lane = threadIdx.x & 31;
-  const int x = (int)(pix % w);
-  const int y = (int)((pix / w) % h);
-  const int64_t img = pix - (int64_t)y * w - x;  // n * h * w
-  const int sgn = kDb ? -1 : 1;
-  const float inv_norm = 1.0f / (float)c;
-
-  for (int c0 = 0; c0 < c; c0 += 32 * kChanPerLane) {
-    float acc[kChanPerLane];
+// Stage S row k: the class's window pixels j (16-byte granules of the
+// block's channels, rows kRow bytes apart), then, for each output row t
+// whose dy index dyi = k - t is in [0, D), the slab of G(i, dx) at
+// t*(kXi/8)*pgs + (i/8)*pgs + kGCol*(i%8 + dx) + i%8:
+// * da (kMirror false): G = g[y, x_i, dyi*D + dx], walked by (i, dx);
+// * db (kMirror true): G = g'[y, x_i, dyi*D + dx] = g[sy, bx_j, (D-1-dyi)*D
+//   + u] with j = i + dx the window pixel and u = D-1-dx, walked by (j, u),
+//   so that both read runs of D floats of one pixel's g row.
+// The walk's address arithmetic is shared by the rows t: their sources
+// are tstride floats apart.
+template <typename T, int kCb, int kRow, bool kMirror>
+__device__ __forceinline__ void bwd_stage(const BwdParams& p,
+                                          const BwdPos& bp, int k,
+                                          unsigned char* st) {
+  constexpr int kPer = 16 / (int)sizeof(T);  // elements per granule
+  constexpr int kGran = kCb / kPer;          // granules per staged row
+  const T* s = static_cast<const T*>(p.s);
+  const int sy = bp.y0 + (k - p.r) * p.s2;
+  const int gi = threadIdx.x % kGran;
+  const int ch = bp.c0 + kPer * gi;
+  const int nv = min(max(p.c - ch, 0), kPer);  // elements inside C
+  const int bx0 = bp.x0 + bp.cls - p.r * p.s2;  // window pixel j: bx0 + s2*j
+  for (int j = threadIdx.x / kGran; j < p.jb; j += blockDim.x / kGran) {
+    const int bx = bx0 + p.s2 * j;
+    const int n_ok = bx >= 0 && bx < p.w ? nv : 0;
+    const T* src = n_ok ? s + (bp.img + (int64_t)sy * p.w + bx) * p.c + ch : s;
+    unsigned char* dst = st + j * kRow + 16 * gi;
+    if (p.aligned16) {
+      cp_async_16(dst, src, n_ok * (int)sizeof(T));
+    } else {
+      T v[kPer];
 #pragma unroll
-    for (int m = 0; m < kChanPerLane; ++m) acc[m] = 0.0f;
-
-    for (int k0 = 0; k0 < dd; k0 += kStage) {
-      const int kn = min(kStage, dd - k0);
-      __syncwarp();  // the previous chunk's readers are done
-      for (int t = lane; t < kn; t += 32) {
-        const int k = k0 + t;
-        float v;
-        if (kDb) {
-          const int qy = y - (k / d - r) * s2;
-          const int qx = x - (k % d - r) * s2;
-          v = (qy >= 0 && qy < h && qx >= 0 && qx < w)
-                  ? g[(img + (int64_t)qy * w + qx) * dd + k]
-                  : 0.0f;
-        } else {
-          v = g[pix * dd + k];
-        }
-        g_s[t] = v;
-      }
-      __syncwarp();
-
-      int i = k0 / d, j = k0 % d;  // displacement (dy, dx) indices of k0
-      for (int t = 0; t < kn; ++t) {
-        const int sy = y + sgn * (i - r) * s2;
-        const int sx = x + sgn * (j - r) * s2;
-        if (++j == d) {
-          j = 0;
-          ++i;
-        }
-        // uniform across the warp: out-of-frame terms are zero padding
-        if (sy < 0 || sy >= h || sx < 0 || sx >= w) continue;
-        const float gv = g_s[t];
-        const T* sp = src + (img + (int64_t)sy * w + sx) * c;
-#pragma unroll
-        for (int m = 0; m < kChanPerLane; ++m) {
-          const int ch = c0 + lane + 32 * m;
-          if (ch < c) acc[m] = fmaf(gv, to_f32(sp[ch]), acc[m]);
-        }
-      }
+      for (int e = 0; e < kPer; ++e) v[e] = e < n_ok ? src[e] : T(0.0f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
     }
+  }
 
-    T* op = out + pix * c;
-#pragma unroll
-    for (int m = 0; m < kChanPerLane; ++m) {
-      const int ch = c0 + lane + 32 * m;
-      if (ch < c) store_as(op + ch, acc[m] * inv_norm);
+  float* slab = reinterpret_cast<float*>(st + p.s_bytes);
+  const int dd = p.dd;
+  const int64_t dd2 = dd * dd;
+  const int t_lo = max(0, k - dd + 1), t_hi = min(bp.rows, k + 1);
+  const int tslab = (kXi / 8) * p.pgs;
+  const int64_t tstride = kMirror ? dd : (int64_t)p.s2 * p.w * dd2 - dd;
+  const int nrow = kMirror ? kXi + dd - 1 : kXi;
+  // (row, col) walked flat, col fastest, blockDim.x at a time
+  const int qs = blockDim.x / dd, rs = blockDim.x % dd;
+  int row = threadIdx.x / dd, col = threadIdx.x % dd;
+  for (; row < nrow; row += qs, col += rs) {
+    if (col >= dd) {
+      col -= dd;
+      ++row;
+      if (row >= nrow) break;
+    }
+    int i, dx, px;  // px: the source pixel's x; its row is y0 or sy
+    if (kMirror) {
+      i = row - (dd - 1) + col;
+      dx = dd - 1 - col;
+      px = bx0 + p.s2 * row;
+      if (i < 0 || i >= kXi) continue;
+    } else {
+      i = row;
+      dx = col;
+      px = bp.x0 + bp.cls + p.s2 * i;
+    }
+    const bool ok = px >= 0 && px < p.w;
+    const float* src =
+        kMirror ? p.g + (bp.img + (int64_t)sy * p.w + px) * dd2 +
+                      (dd - 1 - k) * dd + col
+                : p.g + (bp.img + (int64_t)bp.y0 * p.w + px) * dd2 + k * dd +
+                      col;
+    float* dst = slab + (i >> 3) * p.pgs + kGCol * (dx + (i & 7)) + (i & 7);
+    for (int t = t_lo; t < t_hi; ++t) {
+      cp_async_4(dst + t * tslab, ok ? src + t * tstride : p.g, ok ? 4 : 0);
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-correlation_bwd_da_kernel(const float* __restrict__ g,
-                          const T* __restrict__ b, T* __restrict__ da, int n,
-                          int h, int w, int c, int r, int s2) {
-  __shared__ float g_s[kWarpsPerBlock][kStage];
-  const int wid = threadIdx.x >> 5;
-  const int64_t pix = (int64_t)blockIdx.x * kWarpsPerBlock + wid;
-  if (pix >= (int64_t)n * h * w) return;  // whole warp exits together
-  correlation_bwd_pixel<T, false>(g, b, da, g_s[wid], pix, h, w, c, r, s2);
+// Zero both stages' G slabs: the positions outside the band are never
+// copied to and must read as zeros.
+__device__ __forceinline__ void bwd_zero_slabs(const BwdParams& p,
+                                               unsigned char* smem) {
+  const int n = p.yt * (kXi / 8) * p.pgs;
+  for (int st = 0; st < 2; ++st) {
+    float* slab = reinterpret_cast<float*>(smem + st * p.stage_bytes +
+                                           p.s_bytes);
+    for (int e = threadIdx.x; e < n; e += blockDim.x) slab[e] = 0.0f;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-correlation_bwd_db_kernel(const float* __restrict__ g,
-                          const T* __restrict__ a, T* __restrict__ db, int n,
-                          int h, int w, int c, int r, int s2) {
-  __shared__ float g_s[kWarpsPerBlock][kStage];
-  const int wid = threadIdx.x >> 5;
-  const int64_t pix = (int64_t)blockIdx.x * kWarpsPerBlock + wid;
-  if (pix >= (int64_t)n * h * w) return;
-  correlation_bwd_pixel<T, true>(g, a, db, g_s[wid], pix, h, w, c, r, s2);
+// f32 (kMirror: db's staging): thread task 8 pixels (row t, pixels 8*ig ..
+// 8*ig+7 of the class) x 8 channels (4*cg .. 4*cg+3 and kBwdCbF32/2 + the
+// same); acc[m][q] = sum over S rows and window pixels j of
+// G(8*ig + m, j - 8*ig - m) * S(j, q).
+template <bool kMirror>
+__device__ __forceinline__ void bwd_f32(const BwdParams& p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdPos bp = bwd_pos(p);
+  bwd_zero_slabs(p, smem);
+  const int cg = threadIdx.x % 8;
+  const int pg = threadIdx.x / 8;  // the pixel group of the slab
+  const int t = pg / (kXi / 8), ig = pg % (kXi / 8);
+  const int y = bp.y0 + p.s2 * t;
+  const bool mine = y < p.h && bp.x0 + bp.cls + p.s2 * 8 * ig < p.w;
+  float acc[8][8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[m][q] = 0.0f;
+  __syncthreads();  // the zeroed slabs
+
+  chunk_pipeline(
+      smem, p.stage_bytes, bp.k_hi - bp.k_lo,
+      [&](int s, unsigned char* st) {
+        bwd_stage<float, kBwdCbF32, 4 * kBwdCbF32, kMirror>(p, bp,
+                                                             bp.k_lo + s, st);
+      },
+      [&](int s, const unsigned char* st) {
+        const int dyi = bp.k_lo + s - t;
+        if (!mine || dyi < 0 || dyi >= p.dd) return;
+        const float* sp =
+            reinterpret_cast<const float*>(st) + 8 * ig * kBwdCbF32 + 4 * cg;
+        const float* gp =
+            reinterpret_cast<const float*>(st + p.s_bytes) + pg * p.pgs;
+#pragma unroll 2
+        for (int jj = 0; jj < p.pj; ++jj) {
+          const float* sj = sp + jj * kBwdCbF32;
+          const float4 s0 = *reinterpret_cast<const float4*>(sj);
+          const float4 s1 =
+              *reinterpret_cast<const float4*>(sj + kBwdCbF32 / 2);
+          const float4 g0 = *reinterpret_cast<const float4*>(gp + jj * kGCol);
+          const float4 g1 =
+              *reinterpret_cast<const float4*>(gp + jj * kGCol + 4);
+          const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+          const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int m = 0; m < 8; ++m)
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              acc[m][q] = fmaf(gv[m], sv[q], acc[m][q]);
+        }
+      });
+
+  if (!mine) return;
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int x = bp.x0 + bp.cls + p.s2 * (8 * ig + m);
+    if (x >= p.w) continue;
+    float* o = out + (bp.img + (int64_t)y * p.w + x) * p.c;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = bp.c0 + hh * (kBwdCbF32 / 2) + 4 * cg;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[m][4 * hh + e] * p.inv_c;
+      if (p.aligned16 && c + 4 <= p.c) {
+        *reinterpret_cast<float4*>(o + c) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (c + e < p.c) o[c + e] = v[e];
+      }
+    }
+  }
 }
 
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// (v0, v1) as two packed bf16 pairs, hi = bf16(v) and lo = bf16(v - hi);
+// v0 in the low halves.
+__device__ __forceinline__ void split_bf16(float v0, float v1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// bf16 (kMirror: db's staging): warp task 16 pixels (row t, pixels 16*ig ..
+// 16*ig+15 of the class, slab pixel groups pg0 and pg0 + 1) x kBwdCbBf
+// channels (kNt n8 tiles). A stage holds the S window pixel-major,
+// kBwdRowBf bytes a row.
+template <bool kMirror>
+__device__ __forceinline__ void bwd_bf16(const BwdParams& p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const BwdPos bp = bwd_pos(p);
+  bwd_zero_slabs(p, smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = warp / (kXi / 16), ig = warp % (kXi / 16);
+  const int y = bp.y0 + p.s2 * t;
+  const bool mine = y < p.h && bp.x0 + bp.cls + p.s2 * 16 * ig < p.w;
+  const int nkc = (p.dd + 30) / 16;  // k16 chunks: ceil((16 + D - 1) / 16)
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int pg0 = t * (kXi / 8) + 2 * ig;
+  // ldmatrix.trans row addresses: lanes 0-7 window pixels 0-7 of n tile n,
+  // lanes 8-15 pixels 8-15, lanes 16-31 the same for tile n + 1
+  const int b_addr =
+      (16 * ig + (lane & 7) + (lane & 8)) * kBwdRowBf + 16 * (lane >> 4);
+  constexpr int kNt = kBwdCbBf / 8;
+  float acc[kNt][4];
+#pragma unroll
+  for (int n = 0; n < kNt; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  __syncthreads();  // the zeroed slabs
+
+  chunk_pipeline(
+      smem, p.stage_bytes, bp.k_hi - bp.k_lo,
+      [&](int s, unsigned char* st) {
+        bwd_stage<__nv_bfloat16, kBwdCbBf, kBwdRowBf, kMirror>(
+            p, bp, bp.k_lo + s, st);
+      },
+      [&](int s, const unsigned char* st) {
+        const int dyi = bp.k_lo + s - t;
+        if (!mine || dyi < 0 || dyi >= p.dd) return;  // warp-uniform
+        const float* slab =
+            reinterpret_cast<const float*>(st + p.s_bytes) + pg0 * p.pgs + g8;
+        for (int kc = 0; kc < nkc; ++kc) {
+          // A fragment: register ri holds row g8 + 8*(ri & 1), columns
+          // 2*tq + 8*(ri >> 1) and the next of window chunk kc; rows 8-15
+          // are the next pixel group, whose slab columns start 8 later
+          unsigned ahi[4], alo[4];
+#pragma unroll
+          for (int ri = 0; ri < 4; ++ri) {
+            const int hrow = ri & 1;
+            const int col = 16 * kc + 2 * tq + 8 * (ri >> 1) - 8 * hrow;
+            const float* gp = slab + hrow * p.pgs;
+            const float v0 = col >= 0 && col < p.pj ? gp[kGCol * col] : 0.0f;
+            const float v1 =
+                col + 1 >= 0 && col + 1 < p.pj ? gp[kGCol * (col + 1)] : 0.0f;
+            split_bf16(v0, v1, ahi[ri], alo[ri]);
+          }
+          const unsigned char* bk = st + b_addr + 16 * kc * kBwdRowBf;
+#pragma unroll
+          for (int n = 0; n < kNt; n += 2) {
+            unsigned bf[4];
+            ldmatrix_x4_trans(bf, bk + 16 * n);
+            mma_bf16(acc[n], ahi, bf[0], bf[1]);
+            mma_bf16(acc[n], alo, bf[0], bf[1]);
+            mma_bf16(acc[n + 1], ahi, bf[2], bf[3]);
+            mma_bf16(acc[n + 1], alo, bf[2], bf[3]);
+          }
+        }
+      });
+
+  if (!mine) return;
+  // C fragment: acc[n][2h + e] is pixel 16*ig + g8 + 8h, channel 8n + 2tq + e
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int x = bp.x0 + bp.cls + p.s2 * (16 * ig + g8 + 8 * hh);
+    if (x >= p.w) continue;
+    __nv_bfloat16* o = out + (bp.img + (int64_t)y * p.w + x) * p.c;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      const int c = bp.c0 + 8 * n + 2 * tq;
+      const float v0 = acc[n][2 * hh] * p.inv_c;
+      const float v1 = acc[n][2 * hh + 1] * p.inv_c;
+      if (c + 1 < p.c && p.c % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(o + c) =
+            __floats2bfloat162_rn(v0, v1);
+      } else {
+        if (c < p.c) o[c] = __float2bfloat16(v0);
+        if (c + 1 < p.c) o[c + 1] = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// da = (1/C) sum_k g[p, k] * b[p + delta_k]: G = g, S = b.
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 4 ? kBwdYt * 32 : kBwdYt * 64)
+correlation_bwd_da_kernel(const BwdParams p) {
+  if constexpr (sizeof(T) == 4) {
+    bwd_f32<false>(p);
+  } else {
+    bwd_bf16<false>(p);
+  }
+}
+
+// db = (1/C) sum_k g'[q, k] * a[q + delta_k]: G = g', staged from g, S = a.
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 4 ? kBwdYt * 32 : kBwdYt * 64)
+correlation_bwd_db_kernel(const BwdParams p) {
+  if constexpr (sizeof(T) == 4) {
+    bwd_f32<true>(p);
+  } else {
+    bwd_bf16<true>(p);
+  }
+}
+
+int set_smem(const void* kern, size_t smem) {
+  if (smem > 232448) return (int)cudaErrorInvalidConfiguration;
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Choose the tiles for (n, h, w, c, r, s2); launch da, then db.
 template <typename T>
 int launch_bwd(const float* g, const T* a, const T* b, T* da, T* db, int n,
-               int h, int w, int c, int r, int s2, cudaStream_t s) {
-  const int64_t warps = (int64_t)n * h * w;
-  if (warps == 0) return (int)cudaSuccess;
-  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+               int h, int w, int c, int r, int s2, cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  BwdParams p;
+  p.h = h;
+  p.w = w;
+  p.c = c;
+  p.r = r;
+  p.s2 = s2;
+  p.dd = 2 * r + 1;
+  p.inv_c = 1.0f / (float)c;
+  p.yt = std::min(kBwdYt, (h + s2 - 1) / s2);
+  p.ytiles = s2 * ((h + s2 * p.yt - 1) / (s2 * p.yt));
+  p.xtiles = (w + s2 * kXi - 1) / (s2 * kXi);
+  p.cb = kBf16 ? kBwdCbBf : kBwdCbF32;
+  p.cchunks = (c + p.cb - 1) / p.cb;
+  p.pj = p.dd + 7;
+  p.pgs = p.pj * kGCol + 4;  // pixel groups 16-byte aligned, on other banks
+  p.jb = kBf16 ? 16 + 16 * ((p.dd + 30) / 16) : kXi + p.dd - 1;
+  p.s_bytes = p.jb * (kBf16 ? kBwdRowBf : 4 * kBwdCbF32);
+  p.stage_bytes = p.s_bytes + 4 * p.yt * (kXi / 8) * p.pgs;
+  const uintptr_t align =
+      (uintptr_t)a | (uintptr_t)b | (uintptr_t)da | (uintptr_t)db;
+  p.aligned16 = c % (kBf16 ? 8 : 4) == 0 && align % 16 == 0;
+  const size_t smem = 2 * (size_t)p.stage_bytes;  // double buffered
+  const int64_t blocks = (int64_t)n * p.ytiles * p.xtiles * s2 * p.cchunks;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks);
-  const dim3 block(kWarpsPerBlock * 32);
-  correlation_bwd_da_kernel<T><<<grid, block, 0, s>>>(g, b, da, n, h, w, c,
-                                                      r, s2);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  correlation_bwd_db_kernel<T><<<grid, block, 0, s>>>(g, a, db, n, h, w, c,
-                                                      r, s2);
+  const int threads = p.yt * (kBf16 ? 64 : 32);
+  int err = set_smem((const void*)correlation_bwd_da_kernel<T>, smem);
+  if (err == 0) err = set_smem((const void*)correlation_bwd_db_kernel<T>, smem);
+  if (err != 0) return err;
+  p.g = g;
+  p.s = b;
+  p.out = da;
+  correlation_bwd_da_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(p);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  p.s = a;
+  p.out = db;
+  correlation_bwd_db_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -792,7 +1121,7 @@ extern "C" int flownet2_correlation_fwd(const void* a, const void* b,
 // Backward on `stream`. grad: f32 NHWC (n, h, w, D*D), contiguous; a, b:
 // the forward's inputs; da, db: outputs of a's shape and dtype (f32 when
 // is_bf16 == 0, else bf16). Launches the da kernel, then the db kernel.
-// Returns the first non-zero cudaGetLastError(), else 0.
+// Returns the first non-zero CUDA error, else 0.
 extern "C" int flownet2_correlation_bwd(const void* grad, const void* a,
                                         const void* b, void* da, void* db,
                                         int n, int h, int w, int c,
@@ -801,6 +1130,8 @@ extern "C" int flownet2_correlation_bwd(const void* grad, const void* a,
   if (stride_2 <= 0 || max_displacement < 0 || c <= 0) {
     return (int)cudaErrorInvalidValue;
   }
+  if ((int64_t)n * h * w == 0) return (int)cudaSuccess;
+  if ((int64_t)h * w > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const int r = max_displacement / stride_2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grad);

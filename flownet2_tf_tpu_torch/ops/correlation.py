@@ -122,3 +122,44 @@ def _correlation_oracle(a, b, kernel_size, max_displacement, stride_1,
     cv = torch.stack(planes, dim=-1)
     norm = 1.0 / (kernel_size * kernel_size * c)
     return cv * norm
+
+
+def _shifted(x, dy, dx):
+    """``x[:, y + dy, x + dx]`` over the (H, W) frame, zero outside it."""
+    n, h, w = x.shape[:3]
+    pad_y, pad_x = abs(dy), abs(dx)
+    xp = torch.nn.functional.pad(x, (0, 0, pad_x, pad_x, pad_y, pad_y))
+    return xp[:, pad_y + dy:pad_y + dy + h, pad_x + dx:pad_x + dx + w]
+
+
+def _mirror_shift_grad(g, r, s2):
+    """The plain version of the backward's shift kernel:
+    ``g'[n, y, x, k] = g[n, y + dy_k, x + dx_k, D*D-1-k]`` with ``(dy_k,
+    dx_k) = ((k // D - r)*s2, (k % D - r)*s2)``, zero where that pixel is
+    outside the frame. Since the displacement of channel ``D*D-1-k`` is
+    minus that of ``k``, ``db = _correlation_da_form(g', a, r, s2)``."""
+    d = 2 * r + 1
+    planes = [
+        _shifted(g[..., d * d - 1 - k:d * d - k], (k // d - r) * s2,
+                 (k % d - r) * s2)
+        for k in range(d * d)
+    ]
+    return torch.cat(planes, dim=-1)
+
+
+def _correlation_da_form(G, S, r, s2):
+    """The plain version of the backward kernels' common body:
+    ``out[n, p, c] = (1/C) sum_k G[n, p, k] * S[n, p + delta_k, c]`` over
+    in-frame terms, ``delta_k = ((k // D - r)*s2, (k % D - r)*s2)``, in
+    ``G``'s and ``S``'s promoted dtype (at least f32). ``(G, S) = (g, b)``
+    gives the correlation's ``da``; ``(_mirror_shift_grad(g), a)`` its
+    ``db``."""
+    d = 2 * r + 1
+    dtype = torch.promote_types(torch.promote_types(G.dtype, S.dtype),
+                                torch.float32)
+    G, S = G.to(dtype), S.to(dtype)
+    out = torch.zeros(S.shape, dtype=dtype, device=S.device)
+    for k in range(d * d):
+        out += G[..., k:k + 1] * _shifted(S, (k // d - r) * s2,
+                                          (k % d - r) * s2)
+    return out * (1.0 / S.shape[-1])

@@ -5,9 +5,13 @@ Replaces the TPU kernel
 its forward ``_corr_row_kernel`` (and the XLA einsum form the JAX package
 runs in its place) and its ``custom_vjp`` backward ``_bwd``, which
 differentiates the jnp oracle. Here ``_CorrelationFn`` is the
-``torch.autograd.Function``: the forward kernel saves ``a`` and ``b``,
-the backward kernels gather ``da`` and ``db`` from them and the f32
-cost-volume gradient, and return them in the input dtype like ``_bwd``.
+``torch.autograd.Function``: the forward kernel saves ``a`` and ``b``;
+the backward computes ``da`` from ``b`` and the f32 cost-volume
+gradient ``g``, and ``db`` from ``a`` and the mirror-shifted gradient
+``g'`` (plain version: ``ops/correlation.py::_mirror_shift_grad``),
+which its kernel stages straight from ``g``. Both kernels run one body
+(plain version: ``_correlation_da_form``); they return ``da`` and ``db``
+in the input dtype like ``_bwd``.
 
 The forward launches ``correlation_fwd_f32_kernel`` (exact FFMA) or
 ``correlation_fwd_bf16_kernel`` (``mma.sync`` on tensor cores) by the

@@ -98,7 +98,21 @@ def _plain_grads(a, b, g, d, s2):
         ((1, 12, 20, 96), 4, 2, torch.float32),
         ((1, 5, 7, 33), 6, 3, torch.float32),  # C not a warp multiple
         ((1, 4, 6, 300), 36, 2, torch.float32),  # D=37 > 32, C > 256
-        ((1, 9, 9, 40), 22, 1, torch.float32),  # D*D=2025: staged in chunks
+        ((1, 4, 6, 300), 36, 2, torch.bfloat16),
+        ((1, 9, 9, 40), 22, 1, torch.float32),  # D*D=2025
+        ((1, 9, 9, 40), 22, 1, torch.bfloat16),
+        # W not a multiple of the x tile (s2 * 32 pixels), C = 40
+        ((1, 12, 100, 40), 20, 2, torch.float32),
+        ((1, 12, 100, 40), 20, 2, torch.bfloat16),
+        # s2 = 1, N = 2 with an odd H (rows tiled by four)
+        ((2, 7, 40, 64), 8, 1, torch.float32),
+        ((2, 7, 40, 64), 8, 1, torch.bfloat16),
+        # s2 = 3; C = 33: rows not 16-byte aligned
+        ((2, 9, 50, 33), 6, 3, torch.float32),
+        ((2, 9, 50, 33), 6, 3, torch.bfloat16),
+        # H = 1: one row per block
+        ((1, 1, 9, 16), 4, 2, torch.float32),
+        ((1, 1, 9, 16), 4, 2, torch.bfloat16),
     ],
 )
 def test_backward_kernel_matches_plain_version(gen, shape, d, s2, dtype):
@@ -118,7 +132,8 @@ def test_backward_kernel_matches_plain_version(gen, shape, d, s2, dtype):
            else dict(rtol=2.0 ** -7, atol=1e-5))
     for got, rerun, ref in zip((x.grad, y.grad), again, want):
         assert got.dtype == dtype and got.shape == a.shape
-        assert torch.equal(got, rerun)  # gathers, no atomics: bitwise
+        # each element summed in a fixed order, no atomics: bitwise
+        assert torch.equal(got, rerun)
         torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
