@@ -26,7 +26,18 @@ weights:
   448x1024, batch 1 and 8; phase 5's training path again at ``cli
   train``'s bf16 default, and the bf16 FlowNetC train step timed. The
   correlation kernels take bf16 features there; a profile of the b8
-  forward and of the train step gives their device time in the model.
+  forward and of the train step gives their device time in the model;
+* phase 10, dataset evaluation: a Sintel layout (4 pairs at 436x1024) and
+  a KITTI layout (3 pairs near 375x1242, 16-bit PNG GT about half valid)
+  written from the seed; ``cli eval --model 2`` on both in f32 and bf16
+  from phase 2's checkpoint, held against ``cli eval --device cpu --limit
+  1``, its own ``--save_outputs`` pass and a numpy AEE of the written
+  flows; pairs/s, host decode and device forward times;
+* phase 11, training from disk: ``cli train --model c --dataset
+  flying_chairs`` on a 40-pair 384x512 raw layout (bf16, b8, the config's
+  320x448 crop), then 4 TFRecords written by ``cli make-tfrecords`` (CRC
+  timed) and 3 steps at b4 through ``--tfrecords_train``, whose images
+  cross to the card as uint8.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after, the bf16 paths' by the dtype of the features the kernels took.
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -87,12 +99,27 @@ CORR_BWD_REPLACES = "flownet2_tf_tpu/ops/pallas/correlation_kernel.py:147"
 TRAIN_H, TRAIN_W, TRAIN_BATCH = 320, 448, 8
 TRAIN_STEPS, RESUME_STEPS = 20, 25
 
+# the datasets' published frame sizes: Sintel 436x1024 (2 sequences of 3
+# frames), KITTI 2012's sizes around 375x1242, FlyingChairs 384x512
+SINTEL_HW = (436, 1024)
+KITTI_HWS = ((375, 1242), (370, 1224), (376, 1241))
+CHAIRS_HW, CHAIRS_PAIRS = (384, 512), 40
+EVAL_BATCH = 2
+# the card's f32 AEE against the CPU's on one pair (BASELINE.md's budget)
+AEE_ATOL = 1e-2
+# the on-device AEE against the --save_outputs pass and a numpy AEE of the
+# written flows (f32; sums in other orders, the 1e-12 eps)
+AEE_RTOL = 1e-4
+# wall-time budgets of phases 10 and 11 (s), to keep the run inside its
+# time limit
+PHASE10_BUDGET_S, PHASE11_BUDGET_S = 420.0, 180.0
+
 
 def log(msg):
     print(msg, flush=True)
 
 
-# correlation launches over every path run (phases 2, 5, 7, 9), by
+# correlation launches over every path run (phases 2, 5, 7, 9, 10, 11), by
 # direction and input dtype
 PATH_LAUNCHES = {"fwd": {"float32": 0, "bfloat16": 0},
                  "bwd": {"float32": 0, "bfloat16": 0}}
@@ -243,12 +270,15 @@ def phase1_kernel_vs_plain():
     from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
 
     f32, bf16 = torch.float32, torch.bfloat16
-    fnet2 = (1, 56, 128, 256)  # FlowNetC in FlowNet2 at 448x1024
+    fnet2 = (1, 56, 128, 256)  # FlowNetC in FlowNet2 at 448x1024 (Sintel)
+    kitti = (1, 48, 160, 256)  # at KITTI's 384x1280 bucket
     conv3 = (TRAIN_BATCH, TRAIN_H // 8, TRAIN_W // 8, 256)  # chairs crop
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [
         (fnet2, 20, 2, f32, True),
         (fnet2, 20, 2, bf16, True),
+        (kitti, 20, 2, f32, True),
+        (kitti, 20, 2, bf16, True),
         (conv3, 20, 2, f32, True),
         (conv3, 20, 2, bf16, True),
         # off the TPU tiling (W % 8, C % 128)
@@ -736,6 +766,395 @@ def phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu):
                              f"CPU bf16 {cpu} px")
 
 
+def _smooth_field(rng, h, w, channels, cell):
+    """Uniform noise on a grid of ``cell``-pixel cells, bilinearly
+    upsampled to (h, w, channels) in [0, 1)."""
+    from flownet2_tf_tpu_torch.data.loader import _bilinear_upsample
+
+    small = rng.rand(h // cell + 2, w // cell + 2, channels)
+    return _bilinear_upsample(small.astype("float32"), h, w)
+
+
+def _render_pair(rng, h, w, max_flow=12.0):
+    """A smooth random texture A, a smooth random flow and B = A moved by
+    it (``flow_warp(B, flow) ~= A``, as the synthetic dataset draws them):
+    uint8 images, f32 flow."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.data.loader import _backward_resample
+
+    a = _smooth_field(rng, h, w, 3, 8)
+    flow = (_smooth_field(rng, h, w, 2, 128) * 2 - 1) * max_flow
+    b = _backward_resample(a, -flow)
+    to_u8 = lambda x: (np.clip(x, 0, 1) * 255 + 0.5).astype(np.uint8)  # noqa: E731
+    return to_u8(a), to_u8(b), flow.astype(np.float32)
+
+
+def _write_sintel(root, rng):
+    """MPI-Sintel training layout: 2 sequences x 3 frames, 4 pairs."""
+    from flownet2_tf_tpu_torch.utils import flowlib
+    from flownet2_tf_tpu_torch.utils.image_io import write_image
+
+    h, w = SINTEL_HW
+    for seq in ("alley_1", "market_2"):
+        img = os.path.join(root, "training", "clean", seq)
+        flo = os.path.join(root, "training", "flow", seq)
+        os.makedirs(img)
+        os.makedirs(flo)
+        a, b, flow = _render_pair(rng, h, w)
+        _, c, flow2 = _render_pair(rng, h, w)
+        for i, frame in enumerate((a, b, c), start=1):
+            write_image(frame, os.path.join(img, f"frame_{i:04d}.png"))
+        for i, f in enumerate((flow, flow2), start=1):
+            flowlib.write_flow(f, os.path.join(flo, f"frame_{i:04d}.flo"))
+    return root
+
+
+def _write_kitti(root, rng):
+    """KITTI 2012 layout: colored_0/ pairs and flow_occ/ 16-bit PNG GT,
+    about half its pixels valid (a smooth random mask)."""
+    from flownet2_tf_tpu_torch.utils import flowlib
+    from flownet2_tf_tpu_torch.utils.image_io import write_image
+
+    base = os.path.join(root, "training")
+    os.makedirs(os.path.join(base, "colored_0"))
+    os.makedirs(os.path.join(base, "flow_occ"))
+    for i, (h, w) in enumerate(KITTI_HWS):
+        a, b, flow = _render_pair(rng, h, w)
+        valid = _smooth_field(rng, h, w, 1, 32)[..., 0] > 0.5
+        write_image(a, os.path.join(base, "colored_0", f"{i:06d}_10.png"))
+        write_image(b, os.path.join(base, "colored_0", f"{i:06d}_11.png"))
+        flowlib.write_kitti_png_flow(
+            flow, os.path.join(base, "flow_occ", f"{i:06d}_10.png"),
+            valid=valid.astype("uint16"))
+    return root
+
+
+@contextlib.contextmanager
+def _recording_launches():
+    """Record (shape, dtype) of every correlation forward launch, the
+    device time (CUDA events) and batch size of every on-device AEE call,
+    and when the model was loaded, while the block runs."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.training import infer
+
+    rec = {"shapes": [], "aee": [], "loaded": None}
+    launch, aee, load = ck._launch, infer._aee_on_device, infer.inference_model
+
+    def load_timed(*args):
+        model = load(*args)
+        rec["loaded"] = time.perf_counter()
+        return model
+
+    def launch_spy(a, b, max_displacement, stride_2):
+        rec["shapes"].append((tuple(a.shape), str(a.dtype).split(".")[-1]))
+        return launch(a, b, max_displacement, stride_2)
+
+    def aee_timed(model, batch, compute_dtype):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = aee(model, batch, compute_dtype)
+        end.record()
+        rec["aee"].append((start, end, batch["input_a"].shape[0]))
+        return out
+
+    ck._launch, infer._aee_on_device = launch_spy, aee_timed
+    infer.inference_model = load_timed
+    try:
+        yield rec
+    finally:
+        ck._launch, infer._aee_on_device = launch, aee
+        infer.inference_model = load
+
+
+def _cli_eval(argv):
+    """``cli eval`` in-process between a reset and a read of the launch
+    counts; returns (JSON line, counts, launch record, wall s). The
+    record's ``loop_s`` is the wall time after the model was loaded."""
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+
+    buf = io.StringIO()
+    correlation_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _recording_launches() as rec, contextlib.redirect_stdout(buf):
+        rc = cli.main(["eval", *argv])
+    end = time.perf_counter()
+    wall = end - t0
+    rec["loop_s"] = end - rec["loaded"]
+    counts = path_counts()
+    if rc != 0:
+        raise AssertionError(f"cli eval {argv} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), counts, rec, wall
+
+
+def _bucket(hw):
+    return tuple(-(-x // 64) * 64 for x in hw)
+
+
+def _host_aee(out_dir, dataset, n):
+    """Mean per-pair AEE in numpy from the written NNNNNN_flow.flo files
+    and the dataset's GT (KITTI: its valid mask)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    total = 0.0
+    for i in range(n):
+        flow = flowlib.read_flow(os.path.join(out_dir, f"{i:06d}_flow.flo"))
+        gt = dataset[i]["flow"]
+        valid = gt[..., 2] if gt.shape[-1] == 3 else np.ones(gt.shape[:2])
+        epe = np.sqrt(((flow.astype(np.float64) - gt[..., :2]) ** 2).sum(-1))
+        total += float((epe * valid).sum()) / max(float(valid.sum()), 1.0)
+    return total / n
+
+
+def _eval_one_dataset(tmp, ckpt, name, root, dataset):
+    """Phase 10 on one layout: see phase10_eval."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training import infer
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    n = len(dataset)
+    sizes = [dataset[i]["image_a"].shape[:2] for i in range(n)]
+    per_bucket = {}
+    for hw in sizes:
+        per_bucket[_bucket(hw)] = per_bucket.get(_bucket(hw), 0) + 1
+    eval_batches = sum(-(-k // EVAL_BATCH) for k in per_bucket.values())
+    base = ["--model", "2", "--ckpt", ckpt, "--dataset", name,
+            "--data_root", root]
+    card = base + ["--device", "cuda"]
+
+    # host decode and %64 padding per pair, as evaluate_dataset does it
+    t0 = time.perf_counter()
+    for i in range(n):
+        infer._bucket_batch(dataset[i])
+    decode_ms = (time.perf_counter() - t0) * 1000.0 / n
+
+    aee = {}
+    # each run twice: the second finds the shapes' first forwards done
+    for dtype, run in itertools.product(("float32", "bfloat16"),
+                                        ("first", "second")):
+        line, counts, rec, wall = _cli_eval(
+            card + ["--compute_dtype", dtype, "--eval_batch", str(EVAL_BATCH)])
+        _check_counts(counts, eval_batches, 0, dtype, f"phase 10 {name} {dtype}")
+        if line["pairs"] != n or not math.isfinite(line["aee"]):
+            raise AssertionError(f"phase 10 {name} {dtype}: {line}")
+        aee[dtype] = line["aee"]
+        fwd_ms = sum(s.elapsed_time(e) for s, e, _ in rec["aee"])
+        log(f"phase 10: cli eval --model 2 --dataset {name} --compute_dtype "
+            f"{dtype} --eval_batch {EVAL_BATCH} --device cuda ({run} run): AEE "
+            f"{line['aee']:.6f} px over {n} pairs; correlation launches "
+            f"{counts['fwd'][dtype]} at {sorted(set(rec['shapes']))}; wall "
+            f"{wall:.2f} s with the checkpoint load ({n / wall:.2f} "
+            f"pairs/s), {rec['loop_s']:.3f} s after it ({n / rec['loop_s']:.2f} "
+            f"pairs/s); forward + AEE {fwd_ms / n:.3f} ms/pair between CUDA "
+            f"events around each of the {len(rec['aee'])} batches; host "
+            f"decode + pad {decode_ms:.1f} ms/pair")
+
+    # --save_outputs batches consecutive pairs of one frame size
+    forwards, i = 0, 0
+    while i < n:
+        j = i + 1
+        while j < n and j - i < EVAL_BATCH and sizes[j] == sizes[i]:
+            j += 1
+        forwards, i = forwards + 1, j
+    out = os.path.join(tmp, f"{name}_f32_outputs")
+    line, counts, rec, _ = _cli_eval(
+        card + ["--eval_batch", str(EVAL_BATCH), "--save_outputs", out])
+    _check_counts(counts, forwards, 0, "float32", f"phase 10 {name} outputs")
+    numpy_aee = _host_aee(out, dataset, n)
+    log(f"phase 10: {name} f32 --save_outputs AEE {line['aee']:.6f} px, numpy "
+        f"AEE of the written .flo files {numpy_aee:.6f} px, on-device "
+        f"{aee['float32']:.6f} px (rtol {AEE_RTOL}); correlation launches "
+        f"{counts['fwd']['float32']}")
+    for what, x in (("--save_outputs", line["aee"]), ("numpy", numpy_aee)):
+        if not abs(x - aee["float32"]) <= AEE_RTOL * abs(aee["float32"]):
+            raise AssertionError(f"phase 10 {name}: {what} AEE {x} vs the "
+                                 f"on-device AEE {aee['float32']}")
+    if name == "kitti":
+        kitti = flowlib.read_flow(os.path.join(out, "000000_flow_kitti.png"))
+        flo = flowlib.read_flow(os.path.join(out, "000000_flow.flo"))
+        if kitti.shape != flo.shape[:2] + (3,) or not (
+                np.abs(kitti[..., :2] - np.clip(flo, -512, 32767 / 64)).max()
+                <= 1 / 64):
+            raise AssertionError("phase 10: the KITTI PNG does not read back")
+
+    # one pair on the card and on the CPU: f32 AEE, and the flows of both
+    # dtypes for the bf16 check
+    one = ["--limit", "1", "--eval_batch", "1"]
+    card_f32, counts, rec, _ = _cli_eval(card + one)
+    card_bf16, _, rec_bf16, _ = _cli_eval(
+        card + one + ["--compute_dtype", "bfloat16", "--save_outputs",
+                      os.path.join(tmp, f"{name}_card_bf16")])
+    t0 = time.perf_counter()
+    cpu = {}
+    for dtype in ("float32", "bfloat16"):
+        cpu[dtype], _, _, _ = _cli_eval(
+            base + one + ["--device", "cpu", "--compute_dtype", dtype,
+                          "--save_outputs",
+                          os.path.join(tmp, f"{name}_cpu_{dtype}")])
+    cpu_s = time.perf_counter() - t0
+    flows = {k: flowlib.read_flow(os.path.join(tmp, f"{name}_{k}",
+                                               "000000_flow.flo"))
+             for k in ("card_bf16", "cpu_float32", "cpu_bfloat16")}
+    shape0 = (1,) + tuple(x // 8 for x in _bucket(sizes[0])) + (256,)
+    if (rec["shapes"] != [(shape0, "float32")]
+            or rec_bf16["shapes"] != [(shape0, "bfloat16")]):
+        raise AssertionError(f"phase 10 {name}: one-pair launches "
+                             f"{rec['shapes']} {rec_bf16['shapes']}")
+    err = abs(card_f32["aee"] - cpu["float32"]["aee"])
+    card_gap = _epe(flows["card_bf16"], flows["cpu_float32"])
+    cpu_gap = _epe(flows["cpu_bfloat16"], flows["cpu_float32"])
+    log(f"phase 10: {name} pair 0: f32 AEE card {card_f32['aee']:.6f} px, CPU "
+        f"{cpu['float32']['aee']:.6f} px, |diff| {err:.3e} (limit "
+        f"{AEE_ATOL}); bf16 AEE card {card_bf16['aee']:.6f}, CPU "
+        f"{cpu['bfloat16']['aee']:.6f}; mean EPE to the CPU f32 flow: bf16 "
+        f"card {card_gap:.4e} px, bf16 CPU {cpu_gap:.4e} px (limit "
+        f"{BF16_EPE_RATIO} x the CPU's); correlation at {shape0}; the two "
+        f"CPU runs took {cpu_s:.1f} s")
+    if not err <= AEE_ATOL:
+        raise AssertionError(f"phase 10 {name}: card f32 AEE "
+                             f"{card_f32['aee']} vs CPU {cpu['float32']}")
+    if not card_gap <= BF16_EPE_RATIO * cpu_gap:
+        raise AssertionError(f"phase 10 {name}: bf16 card flow {card_gap} px "
+                             f"from the f32 flow, CPU bf16 {cpu_gap} px")
+
+
+def phase10_eval(tmp, ckpt):
+    """``cli eval --model 2`` at full width on the card, on a Sintel and a
+    KITTI layout written from the seed, in f32 and bf16: one correlation
+    forward launch per batch on the features' dtype; the f32 AEE held
+    against the CPU's on one pair (AEE_ATOL), against the ``--save_outputs``
+    pass and a numpy AEE of the written flows (AEE_RTOL); the bf16 flow as
+    far from the CPU's f32 flow as the CPU's bf16 flow, within
+    BF16_EPE_RATIO (that distance bounds the bf16-vs-f32 AEE gap)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.data import loader
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    sintel = _write_sintel(os.path.join(tmp, "sintel"), rng)
+    kitti = _write_kitti(os.path.join(tmp, "kitti"), rng)
+    log(f"phase 10: wrote the Sintel and KITTI layouts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _eval_one_dataset(tmp, ckpt, "sintel", sintel,
+                      loader.SintelDataset(sintel))
+    _eval_one_dataset(tmp, ckpt, "kitti", kitti, loader.KittiDataset(kitti))
+    wall = time.perf_counter() - t0
+    log(f"phase 10: wall time {wall:.1f} s (budget {PHASE10_BUDGET_S} s)")
+    if wall > PHASE10_BUDGET_S:
+        raise AssertionError("phase 10 overran its time budget")
+
+
+@contextlib.contextmanager
+def _recording_image_feed():
+    """Record the dtype and device of every image batch the trainer
+    converts (``training/loop.py::_images_to_float``)."""
+    from flownet2_tf_tpu_torch.training import loop
+
+    seen, real = [], loop._images_to_float
+
+    def spy(x):
+        seen.append((str(x.dtype).split(".")[-1], x.device.type))
+        return real(x)
+
+    loop._images_to_float = spy
+    try:
+        yield seen
+    finally:
+        loop._images_to_float = real
+
+
+def phase11_train_from_disk(tmp):
+    """``cli train --model c --dataset flying_chairs`` on the card from a
+    raw layout written from the seed (bf16, b8, the config's crop), then
+    from TFRecords written by ``cli make-tfrecords`` (b4, uint8 images):
+    one forward and one backward launch per step, finite losses."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.data import tfrecord
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.utils import flowlib
+    from flownet2_tf_tpu_torch.utils.image_io import write_image
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 11)
+    chairs = os.path.join(tmp, "chairs")
+    first4 = os.path.join(tmp, "chairs4")
+    os.makedirs(chairs)
+    os.makedirs(first4)
+    for i in range(CHAIRS_PAIRS):
+        a, b, flow = _render_pair(rng, *CHAIRS_HW)
+        for d in (chairs, first4) if i < 4 else (chairs,):
+            stem = os.path.join(d, f"{i:05d}")
+            write_image(a, stem + "_img1.ppm")
+            write_image(b, stem + "_img2.ppm")
+            flowlib.write_flow(flow, stem + "_flow.flo")
+    log(f"phase 11: wrote {CHAIRS_PAIRS} FlyingChairs pairs at "
+        f"{CHAIRS_HW[0]}x{CHAIRS_HW[1]} in {time.perf_counter() - t0:.1f} s")
+
+    common = ["--model", "c", "--dataset", "flying_chairs", "--data_root",
+              chairs, "--device", "cuda", "--schedule", "short",
+              "--log_every", "1"]
+    runs = (("raw layout", 10, 8, [], "float32"),
+            ("TFRecords", 3, 4, ["--tfrecords_train",
+                                 os.path.join(tmp, "train.tfrecords")],
+             "uint8"))
+    for what, steps, batch, extra, wire in runs:
+        if extra:
+            t1 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["make-tfrecords", "--data_root", first4,
+                               "--out", extra[1]])
+            made = time.perf_counter() - t1
+            payload = next(tfrecord.read_records(extra[1], verify_crc=False))
+            t1 = time.perf_counter()
+            tfrecord.crc32c(payload)
+            crc_s = time.perf_counter() - t1
+            size = os.path.getsize(extra[1])
+            log(f"phase 11: cli make-tfrecords: {buf.getvalue().strip()}, "
+                f"{size / 1e6:.2f} MB in {made:.2f} s; the pure-Python CRC32C "
+                f"of one {len(payload) / 1e6:.2f} MB record took "
+                f"{crc_s:.2f} s ({len(payload) / 1e6 / crc_s:.2f} MB/s, each "
+                f"record's CRC taken once)")
+            if rc != 0 or json.loads(buf.getvalue())["train"] != 4:
+                raise AssertionError("cli make-tfrecords failed")
+        correlation_kernel.reset_launch_counts()
+        t1 = time.perf_counter()
+        with _recording_image_feed() as seen:
+            recs = _train([*common, *extra, "--batch_size", str(batch),
+                           "--max_steps", str(steps), "--log_dir",
+                           os.path.join(tmp, f"run_{wire}")])
+        counts = path_counts()
+        losses = [r["loss"] for r in recs]
+        log(f"phase 11: cli train --model c --dataset flying_chairs from the "
+            f"{what}, b{batch}, bf16: {len(recs)} steps in "
+            f"{time.perf_counter() - t1:.1f} s, correlation launches "
+            f"{counts}; losses {[round(x, 4) for x in losses]}; examples/s "
+            f"{[round(r['examples_per_sec'], 1) for r in recs]}; images "
+            f"crossed as {sorted(set(seen))}")
+        if [r["step"] for r in recs] != list(range(1, steps + 1)):
+            raise AssertionError(f"logged steps {[r['step'] for r in recs]}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite loss in {losses}")
+        _check_counts(counts, steps, steps, "bfloat16", f"phase 11 {what}")
+        if seen != [(wire, "cuda")] * (2 * steps):
+            raise AssertionError(f"phase 11 {what}: the images crossed as "
+                                 f"{seen}, not {wire}")
+    wall = time.perf_counter() - t0
+    log(f"phase 11: wall time {wall:.1f} s (budget {PHASE11_BUDGET_S} s)")
+    if wall > PHASE11_BUDGET_S:
+        raise AssertionError("phase 11 overran its time budget")
+
+
 def main():
     import torch
 
@@ -757,10 +1176,14 @@ def main():
             training_path(5, train_tmp, "float32")
         train_step_numbers(6, "float32", bwd_timings["float32"]["ms"])
         phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu)
-    inference_numbers(8, tree, "bfloat16", (1, 8))
+        inference_numbers(8, tree, "bfloat16", (1, 8))
+        with tempfile.TemporaryDirectory() as train_tmp:
+            training_path(9, train_tmp, "bfloat16")
+        train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"]["ms"])
+        del tree
+        phase10_eval(tmp, ckpt)
     with tempfile.TemporaryDirectory() as tmp:
-        training_path(9, tmp, "bfloat16")
-    train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"]["ms"])
+        phase11_train_from_disk(tmp)
 
     # the headline numbers are the f32 main path's: FlowNet2 (forward) and
     # FlowNetC training (backward); every timed case is listed beside them

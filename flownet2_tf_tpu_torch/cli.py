@@ -1,17 +1,24 @@
-"""CLI of the torch port: ``python -m flownet2_tf_tpu_torch.cli {train,test}``.
+"""CLI of the torch port:
+``python -m flownet2_tf_tpu_torch.cli {train,test,eval,make-tfrecords}``.
 
-Port of two subcommands of ``flownet2_tf_tpu/cli.py``:
+Port of four subcommands of ``flownet2_tf_tpu/cli.py``:
 
-* ``train``: training on the procedural ``--synthetic`` dataset, bf16 by
-  default as in the JAX package (``--compute_dtype float32`` for the f32
-  path), with the JAX flags this port supports (schedule, checkpoints and
-  resume, warm starts, ``--grad_accum``, ``--eval_every``,
-  ``--transfer_flow_dtype``); one JSON line per logged step. The dataset
-  readers, ``--remat``, image summaries and data parallelism are not
-  ported yet.
+* ``train``: training, bf16 by default as in the JAX package
+  (``--compute_dtype float32`` for the f32 path), on a dataset's raw
+  layout (``--dataset``, ``--data_root``) or its TFRecords
+  (``--tfrecords_train``/``--tfrecords_val``, fed as uint8 images), or on
+  the procedural ``--synthetic`` dataset, with the JAX flags this port
+  supports (schedule, checkpoints and resume, warm starts,
+  ``--grad_accum``, ``--eval_every``, ``--transfer_flow_dtype``); one
+  JSON line per logged step. ``--remat``, image summaries and data
+  parallelism are not ported yet.
 * ``test``: single-pair inference, f32 by default or
   ``--compute_dtype bfloat16`` -> ``.flo`` / flow PNG, and the same JSON
   line on stdout.
+* ``eval``: dataset AEE (Sintel, KITTI, FlyingChairs, FlyingThings3D,
+  ChairsSDHom, TFRecords or synthetic), the JAX package's flags and JSON
+  line; ``--save_outputs`` also writes each predicted flow.
+* ``make-tfrecords``: raw FlyingChairs -> reference-layout TFRecords.
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
 card raises). The other subcommands, the approximation knobs
@@ -22,7 +29,9 @@ and spatial tiling are not ported yet.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 import sys
 
 
@@ -40,18 +49,14 @@ def parse_warm_start_spec(spec: str):
 
 
 def cmd_train(args):
+    from flownet2_tf_tpu_torch.data.dataset_configs import get_dataset_config
     from flownet2_tf_tpu_torch.data.loader import (
         BatchLoader,
         SyntheticFlowDataset,
+        load_batch,
     )
     from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
 
-    if not args.synthetic:
-        raise ValueError(
-            "train: only --synthetic data is supported by the torch port; "
-            "the dataset readers (FlyingChairs, Things3D, Sintel, "
-            "TFRecords) are ROADMAP Queue 1 item 19"
-        )
     cfg = TrainConfig(
         model=args.model,
         schedule=args.schedule,
@@ -68,27 +73,55 @@ def cmd_train(args):
         device=args.device,
     )
     trainer = Trainer(cfg)
-    batch_size = args.batch_size or 8
-    ds = SyntheticFlowDataset(
-        size=args.synthetic_size, height=args.synthetic_height,
-        width=args.synthetic_width, seed=args.seed,
-    )
-    loader = BatchLoader(ds, batch_size=batch_size)
-    # crop must stay a multiple of 64 (model stride constraint)
-    preprocess = None if args.no_augment else {
-        "crop_height": max(64, args.synthetic_height // 64 * 64),
-        "crop_width": max(64, args.synthetic_width // 64 * 64),
-        "image_a": {},
-        "image_b": {},
-    }
     eval_loader = None
-    if args.eval_every:
-        eval_ds = SyntheticFlowDataset(
-            size=max(16, batch_size * 2), height=args.synthetic_height,
-            width=args.synthetic_width, seed=args.seed + 9999,
+    if args.synthetic:
+        batch_size = args.batch_size or 8
+        ds = SyntheticFlowDataset(
+            size=args.synthetic_size, height=args.synthetic_height,
+            width=args.synthetic_width, seed=args.seed,
         )
-        eval_loader = BatchLoader(eval_ds, batch_size=batch_size,
-                                  shuffle=False)
+        loader = BatchLoader(ds, batch_size=batch_size)
+        # crop must stay a multiple of 64 (model stride constraint)
+        preprocess = None if args.no_augment else {
+            "crop_height": max(64, args.synthetic_height // 64 * 64),
+            "crop_width": max(64, args.synthetic_width // 64 * 64),
+            "image_a": {},
+            "image_b": {},
+        }
+        if args.eval_every:
+            eval_ds = SyntheticFlowDataset(
+                size=max(16, batch_size * 2), height=args.synthetic_height,
+                width=args.synthetic_width, seed=args.seed + 9999,
+            )
+            eval_loader = BatchLoader(eval_ds, batch_size=batch_size,
+                                      shuffle=False)
+    else:
+        dataset_config = copy.deepcopy(get_dataset_config(args.dataset))
+        paths = dataset_config.setdefault("PATHS", {})
+        if args.batch_size:
+            dataset_config["BATCH_SIZE"] = args.batch_size
+        if args.data_root:
+            dataset_config["RAW_ROOT"] = args.data_root
+        if args.tfrecords_train:
+            paths["train"] = args.tfrecords_train
+        if args.tfrecords_val:
+            paths["validate"] = args.tfrecords_val
+        if args.image_height:
+            dataset_config["IMAGE_HEIGHT"] = args.image_height
+        if args.image_width:
+            dataset_config["IMAGE_WIDTH"] = args.image_width
+        if args.crop_height:
+            dataset_config["PREPROCESS"]["crop_height"] = args.crop_height
+        if args.crop_width:
+            dataset_config["PREPROCESS"]["crop_width"] = args.crop_width
+        loader, preprocess = load_batch(dataset_config, "train")
+        if args.eval_every:
+            try:
+                eval_loader, _ = load_batch(dataset_config, "validate")
+            except (FileNotFoundError, ValueError) as e:
+                # ValueError: a raw layout with no validate split (sintel)
+                print(f"warning: no validate split ({e}); skipping eval",
+                      flush=True)
     warm = None
     if args.warm_start:
         warm = [parse_warm_start_spec(spec) for spec in args.warm_start]
@@ -132,6 +165,136 @@ def cmd_test(args):
     return 0
 
 
+def cmd_eval(args):
+    from flownet2_tf_tpu_torch.training.infer import evaluate_dataset
+    from flownet2_tf_tpu_torch.training.warmstart import load_params_tree
+
+    dataset = _make_eval_dataset(args)
+    params = load_params_tree(args.ckpt)
+    if args.save_outputs:
+        aee, n = _eval_saving_outputs(args, dataset, params)
+    else:
+        aee = evaluate_dataset(
+            args.model, params, dataset,
+            compute_dtype=args.compute_dtype, limit=args.limit,
+            verbose=args.verbose, batch_size=args.eval_batch,
+            device=args.device,
+        )
+        n = min(len(dataset), args.limit or len(dataset))
+    print(json.dumps({
+        "model": args.model, "dataset": args.dataset,
+        "pairs": n,
+        "aee": aee,
+        **({"outputs": args.save_outputs} if args.save_outputs else {}),
+    }))
+    return 0
+
+
+def _eval_saving_outputs(args, dataset, params):
+    """One pass that fetches each predicted flow (host-side masked AEE,
+    ``sqrt(sum d^2) * valid`` with no eps) and writes
+    <dir>/NNNNNN_flow.{flo,png}, plus a KITTI 16-bit PNG
+    (NNNNNN_flow_kitti.png) when the GT carries a validity channel.
+    Slower than the on-device AEE path: full flow fields cross to the
+    host. ``--eval_batch`` batches consecutive same-shape pairs."""
+    import numpy as np
+    import torch
+
+    from flownet2_tf_tpu_torch.models.common import compute_dtype_of
+    from flownet2_tf_tpu_torch.training import infer
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    cd = compute_dtype_of(args.compute_dtype)
+    device = infer.resolve_device(args.device)
+    model = infer.inference_model(args.model, params, device, cd)
+    os.makedirs(args.save_outputs, exist_ok=True)
+    n = min(len(dataset), args.limit or len(dataset))
+    batch = max(1, int(args.eval_batch))
+    aee_sum = 0.0
+    i = 0
+    pending = None  # item already fetched past a shape-bucket boundary
+    while i < n:
+        items = [dataset[i] if pending is None else pending]
+        pending = None
+        shape = items[0]["image_a"].shape
+        while len(items) < batch and i + len(items) < n:
+            nxt = dataset[i + len(items)]
+            if nxt["image_a"].shape != shape:
+                pending = nxt  # carry over; don't decode it twice
+                break
+            items.append(nxt)
+        a, b = (torch.from_numpy(np.stack([it[k] for it in items]).astype(
+                    np.float32, copy=False)).to(device)
+                for k in ("image_a", "image_b"))
+        flows = infer.forward_flow(model, a, b, cd).cpu().numpy()
+        for j, item in enumerate(items):
+            flow = flows[j]
+            gt = np.asarray(item["flow"], np.float32)
+            if gt.shape[-1] == 3:  # KITTI [u, v, valid]
+                valid = gt[..., 2]
+                gt = gt[..., :2]
+            else:
+                valid = np.ones(gt.shape[:2], np.float32)
+            epe = np.sqrt(((flow - gt) ** 2).sum(-1)) * valid
+            aee = float(epe.sum()) / max(float(valid.sum()), 1.0)
+            aee_sum += aee
+            stem = os.path.join(args.save_outputs, f"{i + j:06d}_flow")
+            flowlib.write_flow(flow, stem + ".flo")
+            flowlib.write_flow_png(flow, stem + ".png")
+            if item["flow"].shape[-1] == 3:
+                # KITTI-benchmark submission format
+                flowlib.write_kitti_png_flow(flow, stem + "_kitti.png")
+            if args.verbose:
+                print(f"  [{i + j + 1}/{n}] AEE {aee:.4f} -> {stem}")
+        i += len(items)
+    return aee_sum / max(n, 1), n
+
+
+def _make_eval_dataset(args):
+    from flownet2_tf_tpu_torch.data import loader as L
+
+    if args.tfrecords:
+        if not (args.image_height and args.image_width):
+            raise SystemExit(
+                "--tfrecords eval needs --image_height/--image_width"
+            )
+        return L.TFRecordFlowDataset(
+            args.tfrecords, args.image_height, args.image_width
+        )
+    name = args.dataset.lower()
+    if name == "synthetic":
+        return L.SyntheticFlowDataset(
+            size=args.limit or 8, height=128, width=128, seed=0
+        )
+    if name == "sintel":
+        return L.SintelDataset(args.data_root, render_pass=args.render_pass)
+    if name == "kitti":
+        return L.KittiDataset(args.data_root)
+    if name in ("chairs", "flying_chairs"):
+        return L.FlyingChairsRawDataset(args.data_root)
+    if name in ("things", "flying_things_3d"):
+        return L.FlyingThings3DDataset(args.data_root)
+    if name in ("sdhom", "chairs_sdhom"):
+        return L.ChairsSDHomDataset(args.data_root)
+    raise SystemExit(f"unknown eval dataset {args.dataset!r}")
+
+
+def cmd_make_tfrecords(args):
+    from flownet2_tf_tpu_torch.tools.make_tfrecords import (
+        convert_flying_chairs,
+    )
+
+    n_train, n_val = convert_flying_chairs(
+        args.data_root,
+        args.out,
+        out_val=args.out_val,
+        val_count=args.val_count,
+        seed=args.seed,
+    )
+    print(json.dumps({"train": n_train, "val": n_val, "out": args.out}))
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="flownet2_tf_tpu_torch",
@@ -139,8 +302,19 @@ def build_parser():
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train a model (synthetic data)")
+    p = sub.add_parser("train", help="train a model")
     _add_model_arg(p)
+    p.add_argument("--dataset", default="chairs")
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--tfrecords_train", default=None,
+                   help="override the dataset config's train TFRecords")
+    p.add_argument("--tfrecords_val", default=None)
+    p.add_argument("--image_height", type=int, default=None,
+                   help="override dataset config IMAGE_HEIGHT")
+    p.add_argument("--image_width", type=int, default=None)
+    p.add_argument("--crop_height", type=int, default=None,
+                   help="override augmentation crop (multiple of 64)")
+    p.add_argument("--crop_width", type=int, default=None)
     p.add_argument("--schedule", default="long",
                    help="long (S_long), fine (S_fine), short")
     p.add_argument("--log_dir", default=None)
@@ -162,8 +336,7 @@ def build_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--no_augment", action="store_true")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on the procedural dataset (no downloads); "
-                        "required: the dataset readers are not ported yet")
+                   help="train on the procedural dataset (no downloads)")
     p.add_argument("--synthetic_size", type=int, default=512)
     p.add_argument("--synthetic_height", type=int, default=128)
     p.add_argument("--synthetic_width", type=int, default=128)
@@ -190,6 +363,43 @@ def build_parser():
                    choices=["float32", "bfloat16"])
     _add_device_arg(p)
     p.set_defaults(fn=cmd_test)
+
+    p = sub.add_parser("eval", help="dataset AEE evaluation")
+    _add_model_arg(p)
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--dataset", default="sintel")
+    p.add_argument("--data_root", default=None)
+    p.add_argument("--tfrecords", default=None,
+                   help="evaluate a TFRecord file instead of a raw layout")
+    p.add_argument("--image_height", type=int, default=None)
+    p.add_argument("--image_width", type=int, default=None)
+    p.add_argument("--render_pass", default="clean",
+                   choices=["clean", "final"])
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--eval_batch", type=int, default=1,
+                   help="batch pairs within a %%64 shape bucket (metric "
+                        "unchanged)")
+    p.add_argument("--save_outputs", default=None,
+                   help="also write each predicted flow to this dir "
+                        "(.flo + .png, + KITTI 16-bit PNG for masked "
+                        "GT); fetches full flows: slower than the "
+                        "on-device AEE path")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=["bfloat16", "float32"])
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser(
+        "make-tfrecords", aliases=["make_tfrecords"],
+        help="raw FlyingChairs -> reference-layout TFRecords",
+    )
+    p.add_argument("--data_root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--out_val", default=None)
+    p.add_argument("--val_count", type=int, default=640)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_make_tfrecords)
     return parser
 
 

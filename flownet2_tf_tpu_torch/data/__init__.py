@@ -1,2 +1,3 @@
-"""Data pipeline of the torch port: synthetic data, batching and
-augmentation (``flownet2_tf_tpu/data`` counterparts)."""
+"""Data pipeline of the torch port: synthetic data, the dataset readers,
+TFRecords, batching and augmentation (``flownet2_tf_tpu/data``
+counterparts)."""

@@ -1,26 +1,42 @@
-"""Host-side input pipeline: the synthetic dataset and the batch loader.
+"""Host-side input pipeline: datasets and the batch loader.
 
-Numpy copies of ``flownet2_tf_tpu/data/loader.py``'s
-``SyntheticFlowDataset`` (with ``_bilinear_upsample`` and
-``_backward_resample``), ``BatchLoader`` and ``_parallel_fetch``. They are
-copied, not imported, because importing the JAX package pulls in JAX; the
-synthetic images and flows are byte-identical to the JAX package's for the
-same seed and index, and the batch order and ``start_batch`` resume are
-the same. The raw-layout and TFRecord dataset readers and ``load_batch``
-are not ported yet (ROADMAP).
+Numpy copies of ``flownet2_tf_tpu/data/loader.py``, copied, not
+imported, because importing the JAX package pulls in JAX:
+
+* ``SyntheticFlowDataset`` (with ``_bilinear_upsample`` and
+  ``_backward_resample``): images and flows byte-identical to the JAX
+  package's for the same seed and index (its default motion regime);
+* the readers of the datasets' published layouts: FlyingChairs (with its
+  1-in-36 ``validate`` holdout), FlyingThings3D (full and subset
+  layouts), ChairsSDHom, MPI-Sintel and KITTI (``colored_0`` and
+  ``image_2``), and reference-layout TFRecords (``TFRecordFlowDataset``,
+  pure Python: the JAX package's native IO runtime is not ported);
+* ``BatchLoader`` and ``_parallel_fetch`` (the same batch order and
+  ``start_batch`` resume), and ``load_batch``, which builds a loader from
+  a dataset config (``data/dataset_configs.py``).
 
 Datasets yield dicts {'image_a', 'image_b', 'flow'} as float32 numpy
-arrays, images in [0, 1]; the trainer moves each batch to the device and
-augments it there (``data/augmentation.py``).
+arrays, images in [0, 1]; ``TFRecordFlowDataset(raw_uint8=True)`` (what
+``load_batch`` builds) keeps the images uint8, and the trainer converts
+them on the device (``training/loop.py::_images_to_float``). KITTI's flow
+is (H, W, 3) [u, v, valid]. The trainer moves each batch to the device
+and augments it there (``data/augmentation.py``).
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
+import struct
 import threading
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from flownet2_tf_tpu_torch.data import tfrecord
+from flownet2_tf_tpu_torch.utils import flowlib
+from flownet2_tf_tpu_torch.utils.image_io import read_image
 
 
 class SyntheticFlowDataset:
@@ -113,6 +129,247 @@ def _backward_resample(img, flow):
         + img[y1, x0] * wy * (1 - wx)
         + img[y1, x1] * wy * wx
     ).astype(np.float32)
+
+
+def _read_float_image(path):
+    return read_image(path).astype(np.float32) / 255.0
+
+
+class FlyingChairsRawDataset:
+    """FlyingChairs release layout: NNNNN_img1.ppm / _img2.ppm / _flow.flo.
+
+    ``split``: 'all' (default: every pair), or 'train'/'validate' for a
+    deterministic 1-in-36 holdout (~635 of 22872 pairs, the size of the
+    official validation split, whose index file the release layout does
+    not carry). The two splits are disjoint and stable across runs.
+    """
+
+    def __init__(self, root, split: str = "all"):
+        self.root = os.fspath(root)
+        ids = sorted(
+            os.path.basename(p)[:-9]
+            for p in glob.glob(os.path.join(self.root, "*_img1.ppm"))
+        )
+        if split == "validate":
+            ids = ids[::36]
+        elif split == "train":
+            holdout = set(ids[::36])
+            ids = [i for i in ids if i not in holdout]
+        elif split != "all":
+            raise ValueError(
+                f"FlyingChairs raw split must be 'all'|'train'|'validate', "
+                f"got {split!r}"
+            )
+        self.ids = ids
+        if not self.ids:
+            raise FileNotFoundError(f"no *_img1.ppm under {self.root}")
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, idx):
+        stem = os.path.join(self.root, self.ids[idx])
+        return {
+            "image_a": _read_float_image(stem + "_img1.ppm"),
+            "image_b": _read_float_image(stem + "_img2.ppm"),
+            "flow": flowlib.read_flow(stem + "_flow.flo"),
+        }
+
+
+class TFRecordFlowDataset:
+    """Reference-layout TFRecords: Example{image_a, image_b, flow} raw
+    bytes, uint8 images and float32 flow at the config's H x W.
+
+    Records are found by an offset index built on first use; reading
+    does not check the CRCs (``tfrecord.read_records`` does).
+    ``raw_uint8`` keeps the images uint8 on the host: a quarter of the
+    bytes to the device, where the trainer converts them.
+    """
+
+    def __init__(self, path, height, width, raw_uint8: bool = False):
+        self.path = os.fspath(path)
+        self.height = int(height)
+        self.width = int(width)
+        self.raw_uint8 = bool(raw_uint8)
+        self._offsets = None
+
+    def fetch_batch(self, idxs, num_workers: int = 4):
+        items = [self[int(i)] for i in idxs]
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def _index(self):
+        if self._offsets is None:
+            offsets = []
+            with open(self.path, "rb") as f:
+                pos = 0
+                while True:
+                    header = f.read(12)
+                    if len(header) < 12:
+                        break
+                    (length,) = struct.unpack("<Q", header[:8])
+                    offsets.append(pos)
+                    pos += 12 + length + 4
+                    f.seek(pos)
+            self._offsets = offsets
+        return self._offsets
+
+    def __len__(self):
+        return len(self._index())
+
+    def __getitem__(self, idx):
+        offsets = self._index()
+        with open(self.path, "rb") as f:
+            f.seek(offsets[idx])
+            header = f.read(12)
+            (length,) = struct.unpack("<Q", header[:8])
+            payload = f.read(length)
+        feats = tfrecord.parse_example(payload)
+        h, w = self.height, self.width
+        image_a = np.frombuffer(feats["image_a"][0], np.uint8).reshape(
+            h, w, 3
+        )
+        image_b = np.frombuffer(feats["image_b"][0], np.uint8).reshape(
+            h, w, 3
+        )
+        if self.raw_uint8:
+            image_a = image_a.copy()
+            image_b = image_b.copy()
+        else:
+            image_a = image_a.astype(np.float32) / 255.0
+            image_b = image_b.astype(np.float32) / 255.0
+        flow = np.frombuffer(feats["flow"][0], np.float32).reshape(h, w, 2)
+        return {"image_a": image_a, "image_b": image_b, "flow": flow.copy()}
+
+
+class _PairFiles:
+    """A dataset of (image_a, image_b, flow) file triples."""
+
+    pairs: list
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx):
+        a, b, flo = self.pairs[idx]
+        return {
+            "image_a": _read_float_image(a),
+            "image_b": _read_float_image(b),
+            "flow": flowlib.read_flow(flo),
+        }
+
+
+class FlyingThings3DDataset(_PairFiles):
+    """FlyingThings3D layout (as used for FlowNet fine-tuning):
+    frames_cleanpass/TRAIN/<A|B|C>/NNNN/left/NNNN.png pairs with
+    optical_flow/TRAIN/.../into_future/left/OpticalFlowIntoFuture_NNNN_L.pfm
+    ground truth. Also accepts the flattened 'subset' layout
+    (train/image_clean/left + train/flow/left)."""
+
+    def __init__(self, root, split="TRAIN", pass_name="frames_cleanpass"):
+        self.root = os.fspath(root)
+        self.pairs = []
+        # split: TRAIN -> train/ (subset) | TRAIN/ (full); anything else
+        # -> val/ (subset) | TEST/ (full): the held-out frames
+        is_train = str(split).lower() == "train"
+        subset_split = "train" if is_train else "val"
+        split = "TRAIN" if is_train else "TEST"
+        subset_img = os.path.join(
+            self.root, subset_split, "image_clean", "left")
+        if os.path.isdir(subset_img):
+            flow_dir = os.path.join(
+                self.root, subset_split, "flow", "left")
+            frames = sorted(glob.glob(os.path.join(subset_img, "*.png")))
+            for a, b in zip(frames[:-1], frames[1:]):
+                stem = os.path.splitext(os.path.basename(a))[0]
+                flo = os.path.join(flow_dir, stem + ".pfm")
+                if os.path.exists(flo):
+                    self.pairs.append((a, b, flo))
+        else:
+            img_root = os.path.join(self.root, pass_name, split)
+            flow_root = os.path.join(self.root, "optical_flow", split)
+            for scene in sorted(glob.glob(os.path.join(img_root, "*", "*"))):
+                rel = os.path.relpath(scene, img_root)
+                frames = sorted(
+                    glob.glob(os.path.join(scene, "left", "*.png"))
+                )
+                for a, b in zip(frames[:-1], frames[1:]):
+                    num = os.path.splitext(os.path.basename(a))[0]
+                    flo = os.path.join(
+                        flow_root, rel, "into_future", "left",
+                        f"OpticalFlowIntoFuture_{num}_L.pfm",
+                    )
+                    if os.path.exists(flo):
+                        self.pairs.append((a, b, flo))
+        if not self.pairs:
+            raise FileNotFoundError(
+                f"no FlyingThings3D pairs under {self.root}"
+            )
+
+
+class ChairsSDHomDataset(_PairFiles):
+    """ChairsSDHom (small-displacement set used to train FlowNetSD):
+    data/<split>/{t0,t1,flow}/NNNNN.{png,png,flo|pfm}."""
+
+    def __init__(self, root, split="train"):
+        self.root = os.fspath(root)
+        base = os.path.join(self.root, "data", split)
+        if not os.path.isdir(base):
+            base = os.path.join(self.root, split)
+        t0 = sorted(glob.glob(os.path.join(base, "t0", "*.png")))
+        self.pairs = []
+        for a in t0:
+            name = os.path.basename(a)
+            stem = os.path.splitext(name)[0]
+            b = os.path.join(base, "t1", name)
+            flo = os.path.join(base, "flow", stem + ".flo")
+            if not os.path.exists(flo):
+                flo = os.path.join(base, "flow", stem + ".pfm")
+            if os.path.exists(b) and os.path.exists(flo):
+                self.pairs.append((a, b, flo))
+        if not self.pairs:
+            raise FileNotFoundError(f"no ChairsSDHom triplets under {base}")
+
+
+class SintelDataset(_PairFiles):
+    """MPI-Sintel training layout: training/{clean|final}/<seq>/frame_NNNN.png
+    with training/flow/<seq>/frame_NNNN.flo ground truth."""
+
+    def __init__(self, root, render_pass="clean", split="training"):
+        self.root = os.fspath(root)
+        img_dir = os.path.join(self.root, split, render_pass)
+        flow_dir = os.path.join(self.root, split, "flow")
+        self.pairs = []
+        for seq in sorted(os.listdir(img_dir)) if os.path.isdir(img_dir) else []:
+            frames = sorted(glob.glob(os.path.join(img_dir, seq, "frame_*.png")))
+            for a, b in zip(frames[:-1], frames[1:]):
+                stem = os.path.basename(a)[:-4]
+                flo = os.path.join(flow_dir, seq, stem + ".flo")
+                if os.path.exists(flo):
+                    self.pairs.append((a, b, flo))
+        if not self.pairs:
+            raise FileNotFoundError(f"no Sintel pairs under {img_dir}")
+
+
+class KittiDataset(_PairFiles):
+    """KITTI flow layout: colored_0/ (KITTI 2012) or image_2/ (KITTI 2015)
+    image pairs *_10.png/*_11.png with flow_occ/ (or flow_noc/) 16-bit PNG
+    ground truth, read as (H, W, 3) [u, v, valid]."""
+
+    def __init__(self, root, split="training", flow_kind="flow_occ"):
+        self.root = os.fspath(root)
+        base = os.path.join(self.root, split)
+        img_dir = os.path.join(base, "colored_0")
+        if not os.path.isdir(img_dir):
+            img_dir = os.path.join(base, "image_2")  # KITTI2015 layout
+        self.pairs = []
+        for first in sorted(glob.glob(os.path.join(img_dir, "*_10.png"))):
+            second = first.replace("_10.png", "_11.png")
+            stem = os.path.basename(first)
+            flo = os.path.join(base, flow_kind, stem)
+            if os.path.exists(second) and os.path.exists(flo):
+                self.pairs.append((first, second, flo))
+        if not self.pairs:
+            raise FileNotFoundError(f"no KITTI pairs under {img_dir}")
 
 
 class BatchLoader:
@@ -260,3 +517,81 @@ def _parallel_fetch(dataset, idxs: Sequence[int], num_workers: int):
     for t in threads:
         t.join()
     return results  # type: ignore[return-value]
+
+
+_RAW_DATASETS = {
+    "flying_chairs": FlyingChairsRawDataset,
+    "flying_things_3d": FlyingThings3DDataset,
+    "chairs_sdhom": ChairsSDHomDataset,
+    "sintel": SintelDataset,
+    "kitti": KittiDataset,
+}
+
+# KITTI ground truth is sparse (a validity mask in the 3rd flow channel)
+# and its frames vary in size per sequence: both break dense-EPE training
+# batches. KITTI is an eval dataset (training/infer.py::evaluate_dataset
+# honors the mask).
+_EVAL_ONLY_DATASETS = {"kitti"}
+
+
+def _raw_dataset_for_split(name, raw_cls, raw_root, split):
+    """Raw-layout datasets honor the requested split (the TFRecord path
+    reads PATHS[split]); 'validate' never aliases the training set."""
+    if split == "train":
+        if name == "flying_chairs":
+            return raw_cls(raw_root, split="train")
+        return raw_cls(raw_root)
+    if name == "flying_chairs":
+        return raw_cls(raw_root, split="validate")
+    if name == "flying_things_3d":
+        return raw_cls(raw_root, split="TEST")
+    if name == "chairs_sdhom":
+        return raw_cls(raw_root, split="test")
+    raise ValueError(
+        f"dataset {name!r} has no raw-layout {split!r} split; provide "
+        f"TFRecords via PATHS[{split!r}]"
+    )
+
+
+def load_batch(dataset_config, split="train", dataset=None):
+    """A BatchLoader for ``split`` of a dataset config dict, and the
+    config's augmentation spec: returns ``(loader, preprocess)``.
+
+    An existing ``PATHS[split]`` TFRecord file is preferred (read with
+    uint8 images); else the raw layout under ``RAW_ROOT``.
+    """
+    name = dataset_config.get("NAME", "flying_chairs")
+    if split == "train" and name in _EVAL_ONLY_DATASETS:
+        raise ValueError(
+            f"dataset {name!r} is eval-only (sparse GT with a validity "
+            "mask and per-sequence frame sizes); use `cli eval --dataset "
+            f"{name}`; training supports flying_chairs, flying_things_3d, "
+            "chairs_sdhom and sintel"
+        )
+    if dataset is None:
+        path = dataset_config.get("PATHS", {}).get(split)
+        if path and os.path.exists(path):
+            dataset = TFRecordFlowDataset(
+                path,
+                dataset_config["IMAGE_HEIGHT"],
+                dataset_config["IMAGE_WIDTH"],
+                raw_uint8=True,
+            )
+        else:
+            raw_root = dataset_config.get("RAW_ROOT")
+            if raw_root and os.path.isdir(raw_root):
+                raw_cls = _RAW_DATASETS.get(name, FlyingChairsRawDataset)
+                dataset = _raw_dataset_for_split(
+                    name, raw_cls, raw_root, split
+                )
+            else:
+                raise FileNotFoundError(
+                    f"no data for {dataset_config.get('NAME')}: checked "
+                    f"TFRecords {path!r} and RAW_ROOT {raw_root!r}"
+                )
+    loader = BatchLoader(
+        dataset,
+        batch_size=dataset_config.get("BATCH_SIZE", 8),
+        shuffle=(split == "train"),
+    )
+    return loader, dataset_config.get("PREPROCESS", {})

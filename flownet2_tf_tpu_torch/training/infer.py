@@ -1,14 +1,18 @@
-"""Inference runtime: single-pair flow.
+"""Inference runtime: single-pair flow and dataset evaluation.
 
-Port of the single-pair half of ``flownet2_tf_tpu/training/infer.py``.
-Arbitrary input sizes are edge-padded up to the next multiple of 64 and
-the flow is cropped back. Inference runs under ``torch.inference_mode()``
-at the compute dtype asked for: ``float32`` (TF32 off,
-``models/common.py::f32_policy``) or ``bfloat16`` (the bf16 policy, with
-the feature layers' weights pre-cast once after loading,
-``models/common.py::cast_params_for_inference``). The device is explicit:
-asking for CUDA where there is none raises; nothing falls back to the
-CPU. Dataset evaluation (``evaluate_dataset``) is not ported yet.
+Port of ``flownet2_tf_tpu/training/infer.py``. Arbitrary input sizes are
+edge-padded up to the next multiple of 64 and the flow is cropped back.
+Inference runs under ``torch.inference_mode()`` at the compute dtype
+asked for: ``float32`` (TF32 off, ``models/common.py::f32_policy``) or
+``bfloat16`` (the bf16 policy, with the feature layers' weights pre-cast
+once after loading, ``models/common.py::cast_params_for_inference``).
+The device is explicit: asking for CUDA where there is none raises;
+nothing falls back to the CPU.
+
+``evaluate_dataset`` scores a dataset by the mean of per-pair AEEs: pairs
+are padded to %64 shape buckets (KITTI's mask ANDed with the padding's),
+batched within a bucket, and the masked AEE is reduced on the device, so
+only per-pair sums and counts cross to the host.
 """
 
 from __future__ import annotations
@@ -77,6 +81,15 @@ def forward_flow(model, image_a, image_b, compute_dtype=None):
         return preds["flow"][:, :h, :w, :]
 
 
+def inference_model(model_name, params, device, compute_dtype):
+    """``load_model``, with the feature layers pre-cast once when
+    ``compute_dtype`` (a torch dtype) is bfloat16."""
+    model = load_model(model_name, params, device)
+    if compute_dtype == torch.bfloat16:
+        cast_params_for_inference(model, compute_dtype)
+    return model
+
+
 def infer_flow(model_name, params, image_a, image_b, device="cuda",
                compute_dtype="float32"):
     """Run a model on a single pair or batch; returns full-res flow.
@@ -87,9 +100,7 @@ def infer_flow(model_name, params, image_a, image_b, device="cuda",
     """
     cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
-    model = load_model(model_name, params, device)
-    if cd == torch.bfloat16:
-        cast_params_for_inference(model, cd)
+    model = inference_model(model_name, params, device, cd)
     a = torch.as_tensor(np.asarray(image_a, np.float32), device=device)
     b = torch.as_tensor(np.asarray(image_b, np.float32), device=device)
     squeeze = a.ndim == 3
@@ -130,3 +141,95 @@ def write_flow_outputs(flow, out_dir, input_a_path, save_flo=True,
     if save_image:
         flowlib.write_flow_png(flow, stem + ".png")
     return stem
+
+
+def _aee_on_device(model, batch, compute_dtype):
+    """Forward and masked AEE on the device; returns a (2, N) tensor of
+    per-pair EPE sums and valid-pixel counts, the only values that cross
+    to the host.
+
+    ``batch``: device tensors already padded to a %64 bucket, with a
+    ``valid`` mask that is 0 in the padding. The EPE is the JAX package's
+    ``sqrt(sum d^2 + 1e-12)`` over the padded grid.
+    """
+    with torch.inference_mode():
+        preds = model({"input_a": batch["input_a"],
+                       "input_b": batch["input_b"]}, compute_dtype)
+        epe = torch.sqrt(
+            torch.sum(torch.square(preds["flow"] - batch["flow"]), dim=-1)
+            + 1e-12)
+        valid = batch["valid"]
+        # per-pair sums: the metric is the mean of per-pair AEEs, so pairs
+        # stay separable when batched
+        return torch.stack([torch.sum(epe * valid, dim=(1, 2)),
+                            torch.sum(valid, dim=(1, 2))])
+
+
+def _bucket_batch(item, multiple=64):
+    """Pad one {image_a, image_b, flow} item to the next %``multiple``
+    bucket: images edge-padded, GT zero-padded, validity mask 0 in the
+    padding (and ANDed with the KITTI mask when present). Returns numpy
+    arrays with a batch axis of 1."""
+    a = np.asarray(item["image_a"], np.float32)
+    b = np.asarray(item["image_b"], np.float32)
+    gt = np.asarray(item["flow"], np.float32)
+    h, w = a.shape[:2]
+    ph = (-h) % multiple
+    pw = (-w) % multiple
+    if gt.shape[-1] == 3:  # KITTI: [u, v, valid]
+        valid = gt[..., 2]
+        gt = gt[..., :2]
+    else:
+        valid = np.ones((h, w), np.float32)
+    if ph or pw:
+        pad_img = ((0, ph), (0, pw), (0, 0))
+        a = np.pad(a, pad_img, mode="edge")
+        b = np.pad(b, pad_img, mode="edge")
+        gt = np.pad(gt, pad_img)
+        valid = np.pad(valid, ((0, ph), (0, pw)))
+    return {"input_a": a[None], "input_b": b[None], "flow": gt[None],
+            "valid": valid[None]}
+
+
+def evaluate_dataset(model_name, params, dataset, compute_dtype="float32",
+                     limit=None, verbose=False, batch_size=1, device="cuda"):
+    """Average endpoint error over a dataset of {image_a, image_b, flow}:
+    the mean of per-pair AEEs.
+
+    Honors KITTI validity masks ((H, W, 3) ground truth); a pair with no
+    valid pixel counts as AEE 0. Pairs are decoded one after another on
+    the host and padded to %64 shape buckets; ``batch_size`` > 1 batches
+    pairs within a bucket, and tail batches run at their true size.
+    ``params``: a JAX-layout tree; bf16 pre-casts the weights once.
+    """
+    cd = compute_dtype_of(compute_dtype)
+    device = resolve_device(device)
+    n = len(dataset) if limit is None else min(limit, len(dataset))
+    model = inference_model(model_name, params, device, cd)
+    batch_size = max(1, int(batch_size))
+    aee_sum = 0.0
+    seen = 0
+
+    def flush(items):
+        nonlocal aee_sum, seen
+        batch = {key: torch.from_numpy(
+                     np.concatenate([it[key] for it in items])).to(device)
+                 for key in items[0]}
+        totals, counts = _aee_on_device(model, batch, cd).cpu().numpy()
+        for t, c in zip(totals, counts):
+            seen += 1
+            aee = float(t) / max(float(c), 1.0)
+            aee_sum += aee
+            if verbose:
+                print(f"  [{seen}/{n}] AEE {aee:.4f}")
+
+    pending = {}  # bucket shape -> padded single-pair batches
+    for i in range(n):
+        item = _bucket_batch(dataset[i])
+        key = item["input_a"].shape[1:3]
+        pending.setdefault(key, []).append(item)
+        if len(pending[key]) == batch_size:
+            flush(pending.pop(key))
+    for items in pending.values():
+        flush(items)
+    return aee_sum / max(n, 1)

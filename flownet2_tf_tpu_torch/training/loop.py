@@ -15,6 +15,10 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   the checkpoints stay f32;
 * ``transfer_flow_dtype`` -> the GT flow is cast to float16/bfloat16 on
   the host, crosses to the device narrow and is cast back to f32 there;
+* ``_images_to_float`` -> uint8 images (``TFRecordFlowDataset(raw_uint8=
+  True)``, what ``load_batch`` reads TFRecords with) cross to the device
+  as uint8 and become ``float32 / 255`` there; float batches pass
+  through;
 * device-side augmentation inside the step -> ``data/augmentation.py`` on
   the device, its draws from a ``torch.Generator`` seeded from
   ``(seed + 17, step)``, so a resumed run draws what an uninterrupted one
@@ -72,6 +76,18 @@ from flownet2_tf_tpu_torch.utils.schedules import get_schedule, make_lr_schedule
 OPTIMIZER_FILE = "optimizer.pt"
 TRANSFER_FLOW_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                         "bfloat16": torch.bfloat16}
+
+
+def _images_to_float(x):
+    """[0, 1] float32 images from a device tensor: uint8 becomes ``x /
+    255`` by a true division, as the JAX package and the host readers
+    compute it (a CUDA division by a Python scalar multiplies by its
+    reciprocal, which differs in the last bit for 126 of the 256 values);
+    float32 passes through unchanged."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) / x.new_full((), 255.0,
+                                                 dtype=torch.float32)
+    return x.to(torch.float32)
 
 
 @dataclasses.dataclass
@@ -199,12 +215,14 @@ class Trainer:
     # -- the step -----------------------------------------------------------
 
     def _to_device(self, batch, flow_wire=torch.float32):
-        """The batch as f32 device tensors; the flow crosses as
-        ``flow_wire`` (cast on the host) and is cast back on the device."""
+        """The batch as f32 device tensors: images cross in their own
+        dtype (uint8 or float32) and are converted on the device; the flow
+        crosses as ``flow_wire`` (cast on the host) and is cast back on the
+        device."""
         image_a, image_b, flow = (torch.as_tensor(np.asarray(batch[k]))
                                   for k in ("image_a", "image_b", "flow"))
-        return (image_a.to(self.device, torch.float32),
-                image_b.to(self.device, torch.float32),
+        return (_images_to_float(image_a.to(self.device)),
+                _images_to_float(image_b.to(self.device)),
                 flow.to(flow_wire).to(self.device).float())
 
     def _loss(self, model, image_a, image_b, flow):

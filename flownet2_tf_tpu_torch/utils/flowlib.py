@@ -1,14 +1,18 @@
-"""Optical-flow ``.flo`` IO and color rendering (host-side, NumPy).
+"""Optical-flow IO, color rendering and evaluation (host-side, NumPy).
 
-Copy of the parts of ``flownet2_tf_tpu/utils/flowlib.py`` the inference
-path writes and reads back; importing the original pulls in JAX.
+Copy of ``flownet2_tf_tpu/utils/flowlib.py``; importing the original
+pulls in JAX.
 
 * Middlebury ``.flo``: magic float ``202021.25``, int32 width, int32
   height, then H x W x 2 little-endian float32 (u, v).
+* KITTI 16-bit PNG flow: ``(uint16 - 2**15) / 64``, valid mask in the
+  3rd channel (``utils/png16.py``).
+* PFM flow (FlyingThings3D): 3-channel ``PF``, rows bottom to top, the
+  scale's sign giving the endianness.
 * ``flow_to_image``: 55-color Middlebury color wheel, per-image
   max-magnitude normalization, ``UNKNOWN_FLOW_THRESH = 1e7``.
-
-KITTI PNG and PFM flow files are not read yet.
+* ``flow_error`` / ``evaluate_flow``: average endpoint error over valid
+  pixels.
 """
 
 from __future__ import annotations
@@ -23,13 +27,13 @@ UNKNOWN_FLOW_THRESH = 1e7
 
 
 def read_flow(filename):
-    """Read a Middlebury ``.flo`` file into an (H, W, 2) float32 array."""
+    """Read a flow file: Middlebury ``.flo`` -> (H, W, 2) float32; ``.pfm``
+    -> (H, W, 2); KITTI ``.png`` -> (H, W, 3) [u, v, valid]."""
     filename = os.fspath(filename)
-    if not filename.endswith(".flo"):
-        raise ValueError(
-            f"{filename}: only Middlebury .flo files are read by the torch "
-            "port"
-        )
+    if filename.endswith(".pfm"):
+        return read_pfm_flow(filename)
+    if filename.endswith(".png"):
+        return read_kitti_png_flow(filename)
     with open(filename, "rb") as f:
         magic = np.fromfile(f, np.float32, count=1)
         if magic.size == 0 or magic[0] != np.float32(TAG_FLOAT):
@@ -60,6 +64,64 @@ def write_flow(flow, filename):
         np.int32(w).tofile(f)
         np.int32(h).tofile(f)
         flow.astype("<f4").tofile(f)
+
+
+def read_kitti_png_flow(filename):
+    """Read KITTI flow PNG -> (H, W, 3) float32 [u, v, valid].
+
+    Encoding: ``flow = (uint16 - 2**15) / 64.0``; channel 2 is the validity
+    mask, and u and v are zeroed where it is 0.
+    """
+    from flownet2_tf_tpu_torch.utils.png16 import read_png16
+
+    img = read_png16(os.fspath(filename))
+    flow = np.empty(img.shape[:2] + (3,), dtype=np.float32)
+    flow[:, :, 0] = (img[:, :, 0].astype(np.float32) - 2.0**15) / 64.0
+    flow[:, :, 1] = (img[:, :, 1].astype(np.float32) - 2.0**15) / 64.0
+    flow[:, :, 2] = (img[:, :, 2] > 0).astype(np.float32)
+    flow[:, :, 0] *= flow[:, :, 2]
+    flow[:, :, 1] *= flow[:, :, 2]
+    return flow
+
+
+def write_kitti_png_flow(flow, filename, valid=None):
+    """Write (H, W, 2) flow to KITTI 16-bit PNG encoding."""
+    from flownet2_tf_tpu_torch.utils.png16 import write_png16
+
+    flow = np.asarray(flow, dtype=np.float32)
+    h, w = flow.shape[:2]
+    if valid is None:
+        valid = np.ones((h, w), dtype=np.uint16)
+    out = np.zeros((h, w, 3), dtype=np.uint16)
+    out[:, :, 0] = np.clip(flow[:, :, 0] * 64.0 + 2.0**15, 0, 65535).astype(
+        np.uint16
+    )
+    out[:, :, 1] = np.clip(flow[:, :, 1] * 64.0 + 2.0**15, 0, 65535).astype(
+        np.uint16
+    )
+    out[:, :, 2] = valid.astype(np.uint16)
+    write_png16(out, os.fspath(filename))
+
+
+def read_pfm_flow(filename):
+    """Read a PFM flow file (FlyingThings3D ground truth) -> (H, W, 2)."""
+    with open(os.fspath(filename), "rb") as f:
+        header = f.readline().rstrip()
+        color = header == b"PF"
+        dims = f.readline().split()
+        w, h = int(dims[0]), int(dims[1])
+        scale = float(f.readline().rstrip())
+        endian = "<" if scale < 0 else ">"
+        data = np.fromfile(f, endian + "f")
+    if not color:
+        # grayscale 'Pf' files are disparity/depth maps, not flow
+        raise ValueError(
+            f"{filename}: single-channel PFM ('Pf') is not an optical "
+            "flow file; flow ground truth is 3-channel 'PF' (u, v, 0)"
+        )
+    data = data.reshape((h, w, 3))
+    data = np.flipud(data)  # PFM stores rows bottom-to-top
+    return np.ascontiguousarray(data[:, :, :2].astype(np.float32))
 
 
 @functools.cache
@@ -162,4 +224,43 @@ def write_flow_png(flow, filename, max_flow=None):
 
     Image.fromarray(flow_to_image(flow, max_flow=max_flow)).save(
         os.fspath(filename)
+    )
+
+
+def flow_error(tu, tv, u, v):
+    """Average endpoint error between GT (tu, tv) and estimate (u, v).
+
+    Pixels whose GT magnitude exceeds ``UNKNOWN_FLOW_THRESH`` are excluded.
+    """
+    tu = np.asarray(tu, dtype=np.float64)
+    tv = np.asarray(tv, dtype=np.float64)
+    u = np.asarray(u, dtype=np.float64)
+    v = np.asarray(v, dtype=np.float64)
+
+    idx_unknown = (np.abs(tu) > UNKNOWN_FLOW_THRESH) | (
+        np.abs(tv) > UNKNOWN_FLOW_THRESH
+    )
+    valid = ~idx_unknown
+    if not np.any(valid):
+        return 0.0
+    du = tu[valid] - u[valid]
+    dv = tv[valid] - v[valid]
+    epe = np.sqrt(du**2 + dv**2)
+    return float(np.mean(epe))
+
+
+def evaluate_flow(gt_flow, pred_flow):
+    """AEE between two (H, W, 2[/3]) flow fields; honors a KITTI valid mask
+    in channel 2 of the GT if present."""
+    gt_flow = np.asarray(gt_flow)
+    pred_flow = np.asarray(pred_flow)
+    if gt_flow.shape[2] == 3:
+        mask = gt_flow[:, :, 2] > 0.5
+        if not np.any(mask):
+            return 0.0
+        du = gt_flow[:, :, 0][mask] - pred_flow[:, :, 0][mask]
+        dv = gt_flow[:, :, 1][mask] - pred_flow[:, :, 1][mask]
+        return float(np.mean(np.sqrt(du**2 + dv**2)))
+    return flow_error(
+        gt_flow[:, :, 0], gt_flow[:, :, 1], pred_flow[:, :, 0], pred_flow[:, :, 1]
     )

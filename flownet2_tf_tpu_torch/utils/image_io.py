@@ -1,4 +1,4 @@
-"""Host-side image reading (copy of ``flownet2_tf_tpu/utils/image_io.py``).
+"""Host-side image IO (copy of ``flownet2_tf_tpu/utils/image_io.py``).
 
 A copy, not an import: ``flownet2_tf_tpu.utils`` pulls in optax and so
 JAX. Pure-NumPy binary-PPM (P6) fast path, PIL for everything else.
@@ -25,6 +25,17 @@ def read_image(path):
     if img.mode != "RGB":
         img = img.convert("RGB")
     return np.asarray(img, dtype=np.uint8)
+
+
+def write_image(arr, path):
+    """Write an (H, W, 3) uint8 array (other dtypes are clipped to 0..255)
+    in the format the path's extension names (PIL)."""
+    from PIL import Image
+
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr, 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(os.fspath(path))
 
 
 def _read_ppm(path):

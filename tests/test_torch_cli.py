@@ -3,6 +3,7 @@ independence from JAX."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -12,9 +13,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import _torch_layouts as layouts  # noqa: E402
 import jax  # noqa: E402
 
+from flownet2_tf_tpu import cli as jcli  # noqa: E402
 from flownet2_tf_tpu.models.registry import get_model as jax_model  # noqa: E402
+from flownet2_tf_tpu.utils import flowlib as jflowlib  # noqa: E402
 from flownet2_tf_tpu.training import warmstart as jws  # noqa: E402
 from flownet2_tf_tpu_torch import cli  # noqa: E402
 from flownet2_tf_tpu_torch.models.registry import get_model  # noqa: E402
@@ -69,6 +73,9 @@ def test_port_imports_no_jax():
         "import flownet2_tf_tpu_torch.data.augmentation\n"
         "import flownet2_tf_tpu_torch.data.dataset_configs\n"
         "import flownet2_tf_tpu_torch.utils.tensorboard\n"
+        "import flownet2_tf_tpu_torch.data.tfrecord\n"
+        "import flownet2_tf_tpu_torch.utils.png16\n"
+        "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flownet2_tf_tpu'))\n"
         "assert not bad, bad\n"
@@ -105,6 +112,9 @@ def test_port_runs_on_the_cpu_without_triton_or_nvcc(tmp_path):
         "import flownet2_tf_tpu_torch.data.augmentation\n"
         "import flownet2_tf_tpu_torch.data.dataset_configs\n"
         "import flownet2_tf_tpu_torch.utils.tensorboard\n"
+        "import flownet2_tf_tpu_torch.data.tfrecord\n"
+        "import flownet2_tf_tpu_torch.utils.png16\n"
+        "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
         "from flownet2_tf_tpu_torch.ops import correlation as tc\n"
         "from flownet2_tf_tpu_torch.ops.cuda import _build\n"
         "rng = np.random.RandomState(0)\n"
@@ -162,3 +172,183 @@ def test_pad_to_multiple_edge_pads_and_crops(rng):
     assert (h, w) == (50, 70) and padded.shape == (1, 64, 128, 3)
     want = np.pad(x.numpy(), ((0, 0), (0, 14), (0, 58), (0, 0)), mode="edge")
     np.testing.assert_array_equal(padded.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def ckpt_s(tmp_path_factory):
+    """FlowNetS(PRNGKey(0)) from the JAX package as a JAX-layout .npz, one
+    for the module (150 MB)."""
+    params = jax.device_get(jax_model("s").init(jax.random.PRNGKey(0)))
+    path = tmp_path_factory.mktemp("ckpt") / "ck_s.npz"
+    np.savez(path, **jws.flatten(params))
+    yield str(path)
+    os.remove(path)
+
+
+@pytest.fixture
+def run_dir(tmp_path):
+    """A training log dir, removed after the test: FlowNetS checkpoints
+    with their Adam state take about 0.5 GB each."""
+    yield tmp_path / "run"
+    shutil.rmtree(tmp_path / "run", ignore_errors=True)
+
+
+def _last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _eval_both(capsys, argv):
+    """``cli eval argv`` through the JAX package's CLI and the port's (on
+    the CPU); returns both JSON lines."""
+    assert jcli.main(["eval", *argv]) == 0
+    theirs = _last_json(capsys)
+    assert cli.main(["eval", *argv, "--device", "cpu"]) == 0
+    return _last_json(capsys), theirs
+
+
+def test_cli_eval_synthetic_matches_jax(ckpt_s, capsys):
+    mine, theirs = _eval_both(capsys, [
+        "--model", "s", "--ckpt", ckpt_s, "--dataset", "synthetic",
+        "--limit", "2"])
+    assert mine.keys() == theirs.keys() == {"model", "dataset", "pairs", "aee"}
+    assert mine["pairs"] == theirs["pairs"] == 2
+    assert mine["aee"] == pytest.approx(theirs["aee"], rel=1e-4)
+
+
+# dataset name -> (layout writer, extra eval flags); mixed frame sizes
+# where the layout has them (two %64 buckets, sizes off the grid)
+EVAL_LAYOUTS = {
+    "sintel": (lambda r: layouts.sintel(r, sizes=((50, 70), (64, 64))),
+               ["--eval_batch", "2", "--render_pass", "final"]),
+    "kitti": (lambda r: layouts.kitti(r, sizes=((50, 70), (60, 64),
+                                                (64, 128))),
+              ["--eval_batch", "2"]),
+    "chairs": (lambda r: layouts.chairs(r, n=3, h=40, w=56), []),
+    "things": (lambda r: layouts.things_full(r, h=40, w=56), []),
+    "sdhom": (lambda r: layouts.sdhom(r, h=40, w=56, ext=".pfm"), []),
+}
+
+
+@pytest.mark.parametrize("dataset", sorted(EVAL_LAYOUTS))
+def test_cli_eval_datasets_match_jax(tmp_path, ckpt_s, capsys, dataset):
+    write, extra = EVAL_LAYOUTS[dataset]
+    root = write(str(tmp_path / dataset))
+    mine, theirs = _eval_both(capsys, [
+        "--model", "s", "--ckpt", ckpt_s, "--dataset", dataset,
+        "--data_root", root, *extra])
+    assert mine.keys() == theirs.keys()
+    assert mine["pairs"] == theirs["pairs"] >= 2
+    assert mine["aee"] == pytest.approx(theirs["aee"], rel=1e-4)
+
+
+def test_cli_eval_save_outputs_like_jax(tmp_path, ckpt_s, capsys):
+    """--save_outputs on a KITTI layout: the JAX package's file names, a
+    .flo near the JAX one, KITTI PNGs that read back in both packages,
+    and the AEE of the on-device path (host-side, no eps)."""
+    root = layouts.kitti(str(tmp_path / "kitti"),
+                         sizes=((50, 70), (50, 70), (64, 64)))
+    base = ["--model", "s", "--ckpt", ckpt_s, "--dataset", "kitti",
+            "--data_root", root, "--eval_batch", "2"]
+    mine, theirs = _eval_both(capsys, [*base, "--save_outputs",
+                                       str(tmp_path / "out")])
+    assert mine.keys() == theirs.keys()
+    assert mine["outputs"] == theirs["outputs"] == str(tmp_path / "out")
+    names = sorted(os.listdir(tmp_path / "out"))
+    assert names == sorted(f"{i:06d}_flow{ext}" for i in range(3)
+                           for ext in (".flo", ".png", "_kitti.png"))
+    assert mine["aee"] == pytest.approx(theirs["aee"], rel=1e-4)
+    assert cli.main(["eval", *base, "--device", "cpu"]) == 0
+    assert _last_json(capsys)["aee"] == pytest.approx(mine["aee"], rel=1e-4)
+
+    # the port's outputs (written last) against the JAX CLI's flows
+    jax_flows = [jflowlib.read_flow(tmp_path / "out" / f"{i:06d}_flow.flo")
+                 for i in range(3)]
+    assert cli.main(["eval", *base, "--device", "cpu", "--save_outputs",
+                     str(tmp_path / "port")]) == 0
+    for i, want in enumerate(jax_flows):
+        stem = tmp_path / "port" / f"{i:06d}_flow"
+        flow = flowlib.read_flow(str(stem) + ".flo")
+        scale = max(1.0, float(np.abs(want).mean()))
+        np.testing.assert_allclose(flow, want, rtol=1e-3, atol=1e-3 * scale)
+        kitti = flowlib.read_flow(str(stem) + "_kitti.png")
+        np.testing.assert_array_equal(
+            kitti, jflowlib.read_kitti_png_flow(str(stem) + "_kitti.png"))
+        assert kitti.shape == flow.shape[:2] + (3,) and kitti[..., 2].all()
+        assert np.abs(kitti[..., :2] - flow).max() <= 1 / 64
+
+
+# dataset -> layout writer; every training dataset's raw layout
+TRAIN_LAYOUTS = {
+    "flying_chairs": lambda r: layouts.chairs(r, n=40, h=40, w=56),
+    "flying_things_3d": lambda r: layouts.things_full(r, h=40, w=56),
+    "chairs_sdhom": lambda r: layouts.sdhom(r, h=40, w=56),
+    "sintel": lambda r: layouts.sintel(r, sizes=((40, 56),)),
+}
+
+
+def _train_dataset_args(run_dir, dataset, *extra):
+    return ["train", "--model", "s", "--dataset", dataset, "--device", "cpu",
+            "--batch_size", "2", "--max_steps", "2", "--schedule", "short",
+            "--log_every", "1", "--crop_height", "64", "--crop_width", "64",
+            "--log_dir", str(run_dir), "--compute_dtype", "float32",
+            *extra]
+
+
+def _train_records(capsys):
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+@pytest.mark.parametrize("dataset", sorted(TRAIN_LAYOUTS))
+def test_cli_train_on_a_raw_layout(tmp_path, run_dir, capsys, dataset):
+    root = TRAIN_LAYOUTS[dataset](str(tmp_path / "data"))
+    rc = cli.main(_train_dataset_args(run_dir, dataset, "--data_root", root,
+                                      "--eval_every", "2"))
+    assert rc == 0
+    out = capsys.readouterr().out
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    steps = [r for r in recs if "loss" in r]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in steps)
+    evals = [r for r in recs if "val_epe" in r]
+    if dataset == "sintel":  # no raw-layout validate split: no eval
+        assert "no validate split" in out and not evals
+    else:
+        assert [r["step"] for r in evals] == [2]
+    assert os.listdir(run_dir / "checkpoints") == ["2"]
+
+
+def test_cli_train_on_tfrecords_feeds_uint8(tmp_path, run_dir, capsys,
+                                           monkeypatch):
+    from flownet2_tf_tpu_torch.training import loop
+
+    root = layouts.chairs(str(tmp_path / "chairs"), n=4, h=40, w=56)
+    rec = tmp_path / "train.tfrecords"
+    assert cli.main(["make-tfrecords", "--data_root", root,
+                     "--out", str(rec)]) == 0
+    assert json.loads(capsys.readouterr().out) == {
+        "train": 4, "val": 0, "out": str(rec)}
+    seen = []
+    real = loop._images_to_float
+
+    def spy(x):
+        seen.append(x.dtype)
+        return real(x)
+
+    monkeypatch.setattr(loop, "_images_to_float", spy)
+    rc = cli.main(_train_dataset_args(
+        run_dir, "flying_chairs", "--tfrecords_train", str(rec),
+        "--image_height", "40", "--image_width", "56",
+        "--data_root", str(tmp_path / "missing")))
+    assert rc == 0
+    assert [r["step"] for r in _train_records(capsys)] == [1, 2]
+    assert seen == [torch.uint8] * 4  # a and b, two steps
+
+
+def test_cli_train_without_data_raises(tmp_path, run_dir):
+    with pytest.raises(FileNotFoundError, match="no data for flying_chairs"):
+        cli.main(_train_dataset_args(
+            run_dir, "chairs", "--data_root", str(tmp_path / "missing")))
+    with pytest.raises(ValueError, match="eval-only"):
+        cli.main(_train_dataset_args(run_dir, "kitti"))

@@ -32,6 +32,8 @@ def gen():
     [
         ((1, 56, 128, 256), 20, 2, torch.float32),  # FlowNet2 at 448x1024
         ((1, 56, 128, 256), 20, 2, torch.bfloat16),
+        ((1, 48, 160, 256), 20, 2, torch.float32),  # at KITTI's 384x1280
+        ((1, 48, 160, 256), 20, 2, torch.bfloat16),
         ((2, 8, 12, 64), 4, 1, torch.float32),  # off the TPU tiling
         ((1, 12, 20, 96), 4, 2, torch.float32),
         ((1, 5, 7, 33), 6, 3, torch.float32),  # D=5, C not a warp multiple
@@ -242,3 +244,48 @@ def test_flownet_c_bf16_loss_gradient_on_card(gen):
     assert torch.isfinite(card).all()
     rel = lambda g: float((g - ref).norm() / ref.norm())  # noqa: E731
     assert rel(card) <= 1.5 * rel(grads["cpu", torch.bfloat16])
+
+
+def test_images_to_float_on_card_is_a_true_division(gen):
+    """uint8 images become x / 255 on the card by a true division, bitwise
+    what the host readers compute (not a multiply by 1/255)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training.loop import _images_to_float
+
+    got = _images_to_float(torch.arange(256, dtype=torch.uint8,
+                                        device="cuda"))
+    want = np.arange(256, dtype=np.float32) / 255.0
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_cli_eval_on_card_matches_cpu(gen, tmp_path, capsys):
+    """``cli eval --model c`` on a tiny Sintel layout (two %64 buckets, one
+    size off the grid): one forward launch per batch, and the card's AEE
+    within 1e-2 px of the CPU path's."""
+    import json
+
+    import _torch_layouts as layouts
+    import numpy as np
+
+    from flownet2_tf_tpu_torch import cli
+
+    root = layouts.sintel(str(tmp_path / "sintel"),
+                          sizes=((50, 70), (64, 64)))
+    tree = warmstart.random_jax_params(flownet_c.FlowNetC(), seed=0)
+    ckpt = tmp_path / "c.npz"
+    np.savez(ckpt, **warmstart.flatten(tree))
+    argv = ["eval", "--model", "c", "--ckpt", str(ckpt), "--dataset",
+            "sintel", "--data_root", root, "--eval_batch", "2"]
+    aee = {}
+    for device in ("cuda", "cpu"):
+        before = correlation_kernel.LAUNCHES
+        assert cli.main([*argv, "--device", device]) == 0
+        line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert line["pairs"] == 4
+        aee[device] = line["aee"]
+        launches = correlation_kernel.LAUNCHES - before
+        assert launches == (2 if device == "cuda" else 0)
+    assert np.isfinite(aee["cuda"])
+    assert abs(aee["cuda"] - aee["cpu"]) <= 1e-2
