@@ -1,7 +1,7 @@
-"""CLI of the torch port:
-``python -m flownet2_tf_tpu_torch.cli {train,test,eval,make-tfrecords}``.
+"""CLI of the torch port: ``python -m flownet2_tf_tpu_torch.cli
+{train,test,eval,make-tfrecords,export,serve,info}``.
 
-Port of four subcommands of ``flownet2_tf_tpu/cli.py``:
+Port of seven subcommands of ``flownet2_tf_tpu/cli.py``:
 
 * ``train``: training, bf16 by default as in the JAX package
   (``--compute_dtype float32`` for the f32 path), on a dataset's raw
@@ -19,11 +19,20 @@ Port of four subcommands of ``flownet2_tf_tpu/cli.py``:
   ChairsSDHom, TFRecords or synthetic), the JAX package's flags and JSON
   line; ``--save_outputs`` also writes each predicted flow.
 * ``make-tfrecords``: raw FlyingChairs -> reference-layout TFRecords.
+* ``export``: a port checkpoint or run directory -> JAX-layout ``.npz``
+  weights, or with ``--aot`` a ``.flowpak`` serving artifact
+  (``tools/aot.py``; ``--shapes`` for a multi-shape bundle), bf16 with
+  half-res stack warps by default, as in the JAX package.
+* ``serve``: a ``.flowpak`` on an image pair, with no model code loaded.
+* ``info``: per-scope parameter counts; ``--flops`` counts the forward's
+  FLOPs with ``torch.utils.flop_counter``.
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
-card raises). The other subcommands, the approximation knobs
-(``--half_res_warp``, ``--warp_res``, ``--fusion_res``, ``--f32_features``)
-and spatial tiling are not ported yet.
+card raises); ``serve`` runs on the device the artifact was exported on.
+``convert``, ``bench``, ``profile``, data-parallel and spatial-tile
+exports, and the approximation knobs other than the export's
+``--warp_mode`` (``--fusion_res``, ``--f32_features``, the bf16
+interconvs) are not ported yet.
 """
 
 from __future__ import annotations
@@ -295,6 +304,144 @@ def cmd_make_tfrecords(args):
     return 0
 
 
+def parse_export_shapes(args):
+    """Validate/parse ``export --aot --shapes`` BEFORE the checkpoint
+    load, so usage errors are instant. Returns [(h, w, b), ...] or None.
+    """
+    if not getattr(args, "shapes", None):
+        return None
+    if args.data_parallel or args.spatial_tiles:
+        raise SystemExit(
+            "--shapes bundles are single-chip; --data_parallel/"
+            "--spatial_tiles only apply to single-shape exports"
+        )
+    shapes = []
+    for spec in args.shapes.split(","):
+        parts = spec.lower().split("x")
+        usage = (
+            f"--shapes: malformed entry {spec!r}; expected "
+            "HxW or HxWxB with positive integers "
+            "(e.g. 448x1024,384x1280x4)"
+        )
+        if len(parts) not in (2, 3):
+            raise SystemExit(usage)
+        try:
+            dims = [int(p) for p in parts]
+        except ValueError:
+            raise SystemExit(usage) from None
+        if any(d <= 0 for d in dims):
+            raise SystemExit(usage)
+        h, w = dims[0], dims[1]
+        b = dims[2] if len(dims) == 3 else 1
+        shapes.append((h, w, b))
+    return shapes
+
+
+def cmd_export(args):
+    """Port checkpoint or run dir -> JAX-layout .npz weights, or --aot
+    .flowpak."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    platforms = args.platforms.split(",") if args.platforms else None
+    shapes = None
+    if args.aot:
+        from flownet2_tf_tpu_torch.tools import aot
+
+        aot.refuse_unported(args.data_parallel, args.spatial_tiles,
+                            platforms)
+        shapes = parse_export_shapes(args)
+    tree = warmstart.load_params_tree(args.ckpt)
+    if args.aot:
+        if shapes is not None:
+            meta = aot.export_serving_bundle(
+                args.model, tree, shapes, args.out,
+                compute_dtype=args.compute_dtype,
+                warp_mode=args.warp_mode, platforms=platforms,
+                device=args.device,
+            )
+        else:
+            meta = aot.export_serving(
+                args.model, tree, args.height, args.width, args.out,
+                batch=args.batch, compute_dtype=args.compute_dtype,
+                warp_mode=args.warp_mode, platforms=platforms,
+                device=args.device,
+            )
+        print(json.dumps({"out": args.out, **meta}))
+        return 0
+    flat = warmstart.flatten(tree)
+    np.savez(args.out, **flat)
+    print(json.dumps({"leaves": len(flat), "out": args.out}))
+    return 0
+
+
+FLOPS_COUNTED = ("convolutions, transposed convolutions and the "
+                 "correlation (2 N H W D^2 C); not the warps, resizes, "
+                 "norms or activations")
+
+
+def cmd_info(args):
+    """Model card: per-scope parameter counts (+ FLOPs/pair with
+    --flops, counted by torch.utils.flop_counter on the meta device: no
+    data, no card)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from flownet2_tf_tpu_torch.models.registry import get_model
+
+    spec = get_model(args.model)
+    model = spec.build("meta")
+    by_scope = {}
+    for name, p in model.named_parameters():
+        scope = name.split(".")[0]
+        by_scope[scope] = by_scope.get(scope, 0) + p.numel()
+    out = {
+        "model": args.model,
+        "name": spec.name,
+        "params_total": sum(by_scope.values()),
+        "params_by_scope": dict(sorted(by_scope.items())),
+    }
+    if args.flops:
+        img = torch.zeros((args.batch, args.height, args.width, 3),
+                          device="meta")
+        with FlopCounterMode(display=False) as counter:
+            model({"input_a": img, "input_b": img}, torch.bfloat16)
+        flops = counter.get_total_flops()
+        out["gflops_per_batch"] = round(flops / 1e9, 3)
+        out["gflops_per_pair"] = round(flops / 1e9 / args.batch, 3)
+        out["flops_counted"] = FLOPS_COUNTED
+        out["at"] = f"{args.batch}x{args.height}x{args.width} bf16"
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+def cmd_serve(args):
+    """Run a .flowpak artifact on an image pair: no model code on the
+    serving path; the graph lives in the artifact (tools/aot.py)."""
+    from flownet2_tf_tpu_torch.tools.aot import load_serving
+    from flownet2_tf_tpu_torch.utils.flowlib import write_flow_outputs
+    from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
+
+    model = load_serving(args.artifact)
+    a, b = load_image_pair(args.input_a, args.input_b)
+    flow = model.infer_pair(a, b)
+    write_flow_outputs(flow, args.out, args.input_a,
+                       save_flo=not args.no_flo,
+                       save_image=not args.no_image)
+    print(json.dumps({
+        "artifact": args.artifact,
+        **{k: model.meta[k] for k in ("model", "compute_dtype",
+                                      "warp_mode")},
+        "flow_shape": list(flow.shape),
+        "mean_magnitude": float(
+            ((flow[..., 0] ** 2 + flow[..., 1] ** 2) ** 0.5).mean()
+        ),
+        "out_dir": args.out,
+    }))
+    return 0
+
+
 def build_parser():
     parser = argparse.ArgumentParser(
         prog="flownet2_tf_tpu_torch",
@@ -400,6 +547,82 @@ def build_parser():
     p.add_argument("--val_count", type=int, default=640)
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_make_tfrecords)
+
+    p = sub.add_parser(
+        "export",
+        help="port checkpoint -> JAX-layout .npz weights, or (--aot) a "
+             ".flowpak serving artifact",
+    )
+    p.add_argument("--ckpt", required=True,
+                   help="a .npz or a port run directory (its newest "
+                        "checkpoint)")
+    p.add_argument("--out", required=True)
+    p.add_argument(
+        "--aot", action="store_true",
+        help="export a serving artifact (torch.export graph + weights in "
+             "one zip) instead of raw weights; shape-specialized to "
+             "--height x --width",
+    )
+    p.add_argument("--model", default="2",
+                   help="model name (AOT export only): s, c, cs, css, "
+                        "sd, 2")
+    p.add_argument("--height", type=int, default=448)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument(
+        "--shapes", default=None,
+        help="comma list of HxW or HxWxB entries (e.g. "
+             "448x1024,384x1280x4): export ONE bundle .flowpak holding "
+             "a graph per shape with shared weights; the loader "
+             "dispatches per call on the input shape. Overrides "
+             "--height/--width/--batch",
+    )
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument(
+        "--warp_mode", default="half",
+        choices=["half", "quarter", "full"],
+        help="half = the serving preset (stack warps on a 2x-coarser "
+             "grid, an approximation); quarter = coarser still; full = "
+             "exact warps (the parity path)",
+    )
+    p.add_argument(
+        "--platforms", default=None,
+        help="the export device's type (cuda or cpu); several platforms "
+             "in one artifact are not ported yet",
+    )
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="not ported yet (ROADMAP Queue 1 item 15)")
+    p.add_argument("--spatial_tiles", type=int, default=0,
+                   help="not ported yet (ROADMAP Queue 1 item 16)")
+    p.add_argument("--spatial_overlap", type=int, default=128)
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser(
+        "info", help="model card: parameter counts, optional FLOPs"
+    )
+    p.add_argument("--model", default="2")
+    p.add_argument("--flops", action="store_true",
+                   help="also count FLOPs/pair (convs, deconvs and the "
+                        "correlation, on the meta device; the JAX "
+                        "package's XLA-only hbm_gb_xla_opsum_bound is not "
+                        "reported)")
+    p.add_argument("--height", type=int, default=448)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--batch", type=int, default=1)
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser(
+        "serve", help="run a .flowpak serving artifact on an image pair"
+    )
+    p.add_argument("--artifact", required=True, help=".flowpak path")
+    p.add_argument("--input_a", required=True)
+    p.add_argument("--input_b", required=True)
+    p.add_argument("--out", required=True, help="output directory")
+    p.add_argument("--no_image", action="store_true")
+    p.add_argument("--no_flo", action="store_true")
+    p.set_defaults(fn=cmd_serve)
     return parser
 
 

@@ -27,12 +27,13 @@ are TPU layout work and are not ported.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from flownet2_tf_tpu_torch.utils.precision import f32_policy  # noqa: F401
 
 LEAK = 0.1
 
@@ -120,26 +121,6 @@ def endpoint_error_mean(labels, predictions):
     """Per-pixel mean EPE (a metric, not the loss)."""
     sq = torch.sum(torch.square(predictions.float() - labels.float()), dim=-1)
     return torch.mean(torch.sqrt(sq + 1e-12))
-
-
-@contextlib.contextmanager
-def f32_policy():
-    """The f32 parity path: no TF32 anywhere.
-
-    cuDNN runs f32 convolutions in TF32 by default (about three decimal
-    digits), which the JAX package's ``Precision.HIGHEST`` f32 path never
-    does (ROADMAP trap C4). Inside this context both cuDNN convs and
-    matmuls run in full f32; the previous settings come back on exit.
-    """
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def io_dtype(compute_dtype, act: bool) -> torch.dtype:

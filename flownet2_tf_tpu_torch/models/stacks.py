@@ -18,9 +18,14 @@ Sub-module names are the JAX package's parameter scopes
 FlowNetC/conv1``). The assemblies run NHWC, like the JAX package; the
 nets they feed run NCHW. Under the bf16 policy (``compute_dtype``,
 ``models/common.py``) the warps, brightness errors, norms and magnitudes
-stay f32; only the concats that feed the next net are cast to bf16. The
-S2D assemblies, the half-resolution fusion input and the coarse warps are
-TPU layout or approximation work and are not ported.
+stay f32; only the concats that feed the next net are cast to bf16.
+
+Every stack warp runs at the model's ``warp_res``, set at construction
+(``ModelSpec.build(device, warp_res=...)``): 1, the default, is the exact
+full-resolution warp; 2 is the JAX package's half-res serving preset
+(``ops/flow_warp.py::flow_warp_coarse``), 4 a quarter-res grid. The S2D
+assemblies and the half-resolution fusion input are TPU layout or
+approximation work and are not ported.
 """
 
 from __future__ import annotations
@@ -30,15 +35,21 @@ from torch import nn
 
 from flownet2_tf_tpu_torch.models import common, flownet_c, flownet_s, flownet_sd
 from flownet2_tf_tpu_torch.models.base import FLOW_SCALE, multiscale_loss
-from flownet2_tf_tpu_torch.ops.flow_warp import stack_warp, stack_warp_multi
+from flownet2_tf_tpu_torch.ops.flow_warp import (
+    check_warp_res,
+    stack_warp,
+    stack_warp_multi,
+)
 from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 
 
-def _second_stage_input(input_a, input_b, flow, compute_dtype=None):
+def _second_stage_input(input_a, input_b, flow, compute_dtype=None,
+                        warp_res=1):
     """The 12-channel NHWC stage-2 input
-    ``[a, b, warped, flow * 0.05, brightness_error]``: the warp and the
-    error in f32, the concat in the compute dtype."""
-    warped = stack_warp(input_b, flow)
+    ``[a, b, warped, flow * 0.05, brightness_error]``: the warp (at
+    ``warp_res``) and the error in f32, the concat in the compute
+    dtype."""
+    warped = stack_warp(input_b, flow, warp_res=warp_res)
     brightness_error = common.channel_norm(input_a - warped)
     dt = compute_dtype or input_a.dtype
     return torch.cat(
@@ -49,8 +60,10 @@ def _second_stage_input(input_a, input_b, flow, compute_dtype=None):
 
 
 class FlowNetCS(nn.Module):
-    def __init__(self):
+    def __init__(self, warp_res: int = 1):
         super().__init__()
+        check_warp_res(warp_res)
+        self.warp_res = warp_res
         self.FlowNetC = flownet_c.FlowNetC()
         self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
 
@@ -58,7 +71,7 @@ class FlowNetCS(nn.Module):
         cd = compute_dtype
         preds_c = self.FlowNetC(inputs, cd)
         x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_c["flow"], cd)
+                                preds_c["flow"], cd, self.warp_res)
         preds = self.FlowNetS(x, cd)
         preds["flow_c"] = preds_c["flow"]
         return preds
@@ -69,16 +82,17 @@ def loss_cs(flow_gt, predictions):
 
 
 class FlowNetCSS(nn.Module):
-    def __init__(self):
+    def __init__(self, warp_res: int = 1):
         super().__init__()
-        self.FlowNetCS = FlowNetCS()
+        self.warp_res = warp_res
+        self.FlowNetCS = FlowNetCS(warp_res)
         self.FlowNetS = flownet_s.FlowNetS(input_channels=12)
 
     def forward(self, inputs, compute_dtype=None):
         cd = compute_dtype
         preds_cs = self.FlowNetCS(inputs, cd)
         x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_cs["flow"], cd)
+                                preds_cs["flow"], cd, self.warp_res)
         preds = self.FlowNetS(x, cd)
         preds["flow_cs"] = preds_cs["flow"]
         return preds
@@ -100,12 +114,13 @@ FUSION = [
 FUSION_IN_CHANNELS = 11  # 3 + 2 + 2 + 1 + 1 + 1 + 1
 
 
-def _double_warp(input_b, flow_a, flow_b):
+def _double_warp(input_b, flow_a, flow_b, warp_res=1):
     """Warp each sample's input_b by BOTH branch flows (one multi-flow
-    warp per sample); returns the two warped batches."""
+    warp per sample, at ``warp_res``); returns the two warped batches."""
     pairs = [
         stack_warp_multi(input_b[i:i + 1],
-                         torch.cat([flow_a[i:i + 1], flow_b[i:i + 1]]))
+                         torch.cat([flow_a[i:i + 1], flow_b[i:i + 1]]),
+                         warp_res=warp_res)
         for i in range(input_b.shape[0])
     ]
     return (torch.cat([p[0:1] for p in pairs]),
@@ -113,9 +128,10 @@ def _double_warp(input_b, flow_a, flow_b):
 
 
 class FlowNet2(nn.Module):
-    def __init__(self):
+    def __init__(self, warp_res: int = 1):
         super().__init__()
-        self.FlowNetCSS = FlowNetCSS()
+        self.warp_res = warp_res
+        self.FlowNetCSS = FlowNetCSS(warp_res)
         self.FlowNetSD = flownet_sd.FlowNetSD()
         cin = FUSION_IN_CHANNELS
         for name, k, stride, cout, act in FUSION:
@@ -143,7 +159,8 @@ class FlowNet2(nn.Module):
         flow_css = preds_css["flow"]
         flow_sd = preds_sd["flow"]
 
-        warped_css, warped_sd = _double_warp(input_b, flow_css, flow_sd)
+        warped_css, warped_sd = _double_warp(input_b, flow_css, flow_sd,
+                                             self.warp_res)
         err_css = common.channel_norm(input_a - warped_css)
         err_sd = common.channel_norm(input_a - warped_sd)
         mag_css = common.channel_norm(flow_css)

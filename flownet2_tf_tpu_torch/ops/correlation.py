@@ -11,14 +11,18 @@ FlowNetC configuration ``k=1, d=20, s1=1, s2=2, pad=20``):
 with ``y1 = border + y'*stride_1``, ``dy = (dy_i - r)*stride_2``,
 ``r = max_displacement // stride_2`` and ``D = 2r + 1``.
 
-Routing is by the tensor's device, with no knob:
+Routing:
 
-* the FlowNetC family (``k=1, s1=1, pad == d, d % s2 == 0``) goes to
-  ``ops/cuda/correlation_kernel.py``, which launches the hand-written
-  CUDA kernels (forward, and backward under autograd) on a CUDA tensor
-  and takes the plain version, with autograd through it, on a CPU one;
-* any other configuration takes the plain version on the CPU and
-  raises on CUDA.
+* the FlowNetC family (``k=1, s1=1, pad == d, d % s2 == 0``) goes through
+  the registered op ``flownet2::correlation``
+  (``ops/cuda/correlation_kernel.py``) on every device, so an exported
+  graph holds one such node on the CPU as on the card. Its CUDA kernel
+  launches the hand-written CUDA kernels (forward, and backward under
+  autograd); its CPU kernel is the plain version below, and its CPU
+  backward the plain versions of the backward kernels
+  (:func:`_correlation_da_form`, :func:`_mirror_shift_grad`);
+* any other configuration takes the plain version, with autograd
+  through it, on the CPU and raises on CUDA.
 """
 
 from __future__ import annotations

@@ -1,23 +1,34 @@
 """Bilinear backward warping.
 
-Port of the exact (k=1) path of ``flownet2_tf_tpu/ops/flow_warp.py``:
+Port of ``flownet2_tf_tpu/ops/flow_warp.py``:
 ``warped[n, y, x, c] = image[n, y + v(y,x), x + u(y,x), c]`` sampled
 bilinearly, with sample coordinates clamped to the image border
 (``border='clamp'``), or with out-of-frame samples set to 0
-(``border='zero'``). The half-resolution and S2D stack-warp variants of
-the JAX package are not ported yet.
+(``border='zero'``).
+
+The stack warps (second-stage inputs, the FlowNet2 fusion double warp)
+take the coordinate-grid factor ``warp_res`` as an argument: 1 is the
+exact full-resolution warp, 2 (the JAX package's half-res serving
+preset) and 4 warp a k x k area-pooled image by the pooled flow in
+coarse pixels and upsample the result back (:func:`flow_warp_coarse`),
+an approximation. The JAX package reads that factor from thread-local
+and environment knobs at trace time; here it is only ever an argument.
+Its TPU-only knobs (the 2x2 pool's lowering, a bf16 warp source, the S2D
+forms) are not ported. The warp chain runs f32.
 """
 
 from __future__ import annotations
 
 import torch
 
+from flownet2_tf_tpu_torch.ops.resize import resize_bilinear_tf1
 from flownet2_tf_tpu_torch.ops.sampling import (
     bilinear_gather,
     bilinear_gather_multi,
 )
 
 _BORDERS = ("clamp", "zero")
+WARP_RES = (1, 2, 4)
 
 
 def _coords(flows, h, w):
@@ -80,12 +91,72 @@ def flow_warp_multi(image, flows, border: str = "clamp"):
     return _mask_border(out, x2, y2, h, w, border)
 
 
-def stack_warp(image, flow, border: str = "clamp"):
+def _pool(x, k):
+    """Exact k x k area mean of NHWC ``x`` (k in {1, 2, 4}; H, W % k == 0,
+    which the %64 input contract guarantees)."""
+    if k == 1:
+        return x
+    n, h, w, c = x.shape
+    return x.reshape(n, h // k, k, w // k, k, c).mean(dim=(2, 4))
+
+
+def _coarse_flow(flow_pooled, k):
+    """A k-pooled flow in coarse-grid pixels, compensating the pooled
+    grid's (k-1)/2-px offset: pooled pixel j sits at full-res k*j +
+    (k-1)/2, while the TF1 upsample reads coarse position x/k for output
+    x, so without the term the warp shifts by +(k-1)/2 px."""
+    return flow_pooled * (1.0 / k) - (k - 1) / (2.0 * k)
+
+
+def flow_warp_coarse(image, flow, k, border: str = "clamp"):
+    """:func:`flow_warp` computed on the k x k-pooled image with the
+    pooled flow in coarse pixels, bilinearly upsampled back to (H, W):
+    k**2 fewer samples, other numbers than the full-res warp."""
+    n, h, w, c = image.shape
+    image_c = _pool(_float_image(image), k)
+    flow_c = _coarse_flow(_pool(flow.to(torch.float32), k), k)
+    return resize_bilinear_tf1(flow_warp(image_c, flow_c, border), h, w)
+
+
+def flow_warp_half(image, flow, border: str = "clamp"):
+    """:func:`flow_warp_coarse` at k=2 (the serving preset)."""
+    return flow_warp_coarse(image, flow, 2, border)
+
+
+def flow_warp_multi_coarse(image, flows, k, border: str = "clamp"):
+    """Coarse-grid variant of :func:`flow_warp_multi`."""
+    n, h, w, c = image.shape
+    image_c = _pool(_float_image(image), k)
+    flows_c = _coarse_flow(_pool(flows.to(torch.float32), k), k)
+    return resize_bilinear_tf1(flow_warp_multi(image_c, flows_c, border),
+                               h, w)
+
+
+def flow_warp_multi_half(image, flows, border: str = "clamp"):
+    """:func:`flow_warp_multi_coarse` at k=2."""
+    return flow_warp_multi_coarse(image, flows, 2, border)
+
+
+def check_warp_res(warp_res):
+    if warp_res not in WARP_RES:
+        raise ValueError(f"warp_res must be one of {WARP_RES}, got "
+                         f"{warp_res!r}")
+
+
+def stack_warp(image, flow, border: str = "clamp", warp_res: int = 1):
     """The warp at stack boundaries (second-stage inputs): the exact
-    full-resolution :func:`flow_warp` (the JAX package's k=1)."""
+    full-res :func:`flow_warp` at ``warp_res=1``, else the coarse-grid
+    approximation at that factor."""
+    check_warp_res(warp_res)
+    if warp_res > 1:
+        return flow_warp_coarse(image, flow, warp_res, border)
     return flow_warp(image, flow, border)
 
 
-def stack_warp_multi(image, flows, border: str = "clamp"):
-    """Multi-flow stack warp (FlowNet2 fusion double warp), k=1."""
+def stack_warp_multi(image, flows, border: str = "clamp", warp_res: int = 1):
+    """Multi-flow stack warp (FlowNet2 fusion double warp), at
+    ``warp_res`` like :func:`stack_warp`."""
+    check_warp_res(warp_res)
+    if warp_res > 1:
+        return flow_warp_multi_coarse(image, flows, warp_res, border)
     return flow_warp_multi(image, flows, border)

@@ -1,0 +1,486 @@
+"""Serving export: trace a model forward once, ship one artifact.
+
+Port of ``flownet2_tf_tpu/tools/aot.py``. The forward ``fn(params,
+image_a, image_b) -> flow`` is traced by :func:`torch.export.export`
+ahead of time, with the weights as inputs (``torch.func.functional_call``),
+and written with the weights into one ``.flowpak`` zip:
+
+    exported.pt2   torch.export.save of fn (the graph only, no weights);
+                   ``exported_{i}.pt2`` per entry of a bundle
+    params.npz     flat weight arrays, the JAX package's layout and
+                   ``warmstart.flatten`` naming; bf16 leaves stored as
+                   uint16 bit patterns: the JAX artifact's params.npz,
+                   key for key and bit for bit
+    meta.json      the JAX artifact's keys: model, shapes, compute dtype,
+                   warp mode, platforms (the export device: ``["cuda"]``
+                   or ``["cpu"]``), data_parallel, spatial_tiles,
+                   fusion_res, bf16-leaf manifest
+
+Each ``.pt2`` also holds ``layouts.json``, the kind of each weight
+(``conv``, ``deconv`` or ``bias``), which says how the loader turns the
+JAX layout into the graph's (HWIO -> OIHW; deconvs also flipped, ROADMAP
+trap C2).
+
+:func:`load_serving` restores the artifact without importing any
+``flownet2_tf_tpu_torch.models`` module: the graph lives in the artifact.
+It needs the correlation op's registration
+(``ops/cuda/correlation_kernel.py``), whose CUDA kernel the graph calls
+once per forward. Serving choices are baked in at export: bf16 weights
+pre-cast (``models/common.py::cast_params_for_inference``) and the stack
+warps' grid (``warp_mode`` half -> ``warp_res`` 2, quarter -> 4, full ->
+1). TF32 is process state, not a graph node, so every call runs inside
+``f32_policy`` (TF32 off), as the eager models do.
+
+Exports are shape-specialized: H and W multiples of 64, one static
+(batch, H, W) per graph; a bundle holds several graphs and one copy of
+the weights. Data-parallel, spatial-tile, multi-platform and half-res
+fusion exports are not ported yet (ROADMAP Queue 1 item 16).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import warnings
+import zipfile
+
+import numpy as np
+import torch
+from torch import nn
+
+# the op registration the graphs call; imports no model code
+from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel  # noqa: F401
+from flownet2_tf_tpu_torch.utils.precision import f32_policy
+
+FORMAT_VERSION = 1
+BUNDLE_FORMAT_VERSION = 2
+
+WARP_RES = {"full": 1, "half": 2, "quarter": 4}
+LAYOUTS_FILE = "layouts.json"
+
+# JAX layout -> the graph's, per layer kind: the two transforms of
+# models/common.py::Conv.from_jax and Deconv.from_jax (trap C2)
+_FROM_JAX = {
+    "conv": lambda w: w.transpose(3, 2, 0, 1),
+    "deconv": lambda w: w[::-1, ::-1].transpose(2, 3, 0, 1),
+    "bias": lambda w: w,
+}
+
+
+def warp_res_of(warp_mode: str) -> int:
+    """``'full'`` -> 1, ``'half'`` -> 2, ``'quarter'`` -> 4; raises on any
+    other mode."""
+    try:
+        return WARP_RES[warp_mode]
+    except KeyError:
+        raise ValueError(
+            f"warp_mode must be 'half', 'quarter' or 'full': {warp_mode!r}"
+        ) from None
+
+
+def refuse_unported(data_parallel=0, spatial_tiles=0, platforms=None,
+                    fusion_res=1):
+    """SystemExit for the export options the port does not have yet."""
+    if data_parallel and int(data_parallel) > 1:
+        raise SystemExit(
+            "export --data_parallel is not ported yet: it comes with data "
+            "parallelism (ROADMAP Queue 1 item 15)")
+    if spatial_tiles and int(spatial_tiles) > 1:
+        raise SystemExit(
+            "export --spatial_tiles is not ported yet: it needs "
+            "parallel/spatial.py (ROADMAP Queue 1 item 16)")
+    if platforms is not None and len(platforms) > 1:
+        raise SystemExit(
+            f"export --platforms {','.join(platforms)}: multi-platform "
+            "artifacts are not ported yet (ROADMAP Queue 1 item 16); "
+            "export once per device")
+    if int(fusion_res) != 1:
+        raise SystemExit(
+            "fusion_res=2 (half-res fusion) is not ported yet (ROADMAP "
+            "Queue 1 item 18)")
+
+
+def _check_shape(height, width):
+    if height % 64 or width % 64:
+        raise ValueError(
+            f"serving export shapes must be multiples of 64 (six stride-2 "
+            f"stages): got {height}x{width}. Pad to the next multiple and "
+            "crop the flow on the host."
+        )
+
+
+class _ServingForward(nn.Module):
+    """``fn(params, image_a, image_b) -> flow`` over a built model.
+
+    The model is held outside the module tree, so that the export lifts
+    none of its parameters: the weights are the ``params`` input, bound
+    by ``functional_call``, and the artifact stores them once."""
+
+    def __init__(self, model, compute_dtype):
+        super().__init__()
+        object.__setattr__(self, "model", model)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, params, image_a, image_b):
+        preds = torch.func.functional_call(
+            self.model, params,
+            ({"input_a": image_a, "input_b": image_b}, self.compute_dtype))
+        return preds["flow"]
+
+
+def _serving_forward(model_name, tree, compute_dtype, warp_mode, device):
+    """(forward module, params by name, layouts, encoded params): the
+    model built at ``warp_mode``'s grid on ``device``, filled from the
+    JAX-layout ``tree``, its feature layers pre-cast for bf16."""
+    from flownet2_tf_tpu_torch.models.common import (
+        cast_params_for_inference,
+        compute_dtype_of,
+    )
+    from flownet2_tf_tpu_torch.models.registry import get_model
+    from flownet2_tf_tpu_torch.training.warmstart import load_jax_params
+
+    cd = compute_dtype_of(compute_dtype)
+    spec = get_model(model_name)
+    # a model without stack warps has nothing to coarsen (as in the JAX
+    # package, whose knob such a model never reads)
+    warp_res = warp_res_of(warp_mode) if spec.stack_warps else 1
+    model = spec.build(device, warp_res=warp_res)
+    load_jax_params(model, tree)
+    if cd == torch.bfloat16:
+        cast_params_for_inference(model, cd)
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return (_ServingForward(model, cd), params, _layouts(model),
+            _encode_params(model))
+
+
+def _layouts(model):
+    """{JAX key: 'conv' | 'deconv' | 'bias'} of every weight of ``model``."""
+    from flownet2_tf_tpu_torch.models.common import Deconv
+    from flownet2_tf_tpu_torch.training.warmstart import _layers
+
+    out = {}
+    for scope, layer in _layers(model):
+        out[f"{scope}/weights"] = (
+            "deconv" if isinstance(layer, Deconv) else "conv")
+        out[f"{scope}/biases"] = "bias"
+    return out
+
+
+def _numpy(t):
+    """A CPU copy of ``t``; bf16 as its uint16 bit patterns."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _encode_params(model):
+    """npz-encode ``model``'s weights in the JAX layout (``to_jax`` per
+    layer, on the stored dtype). numpy has no bfloat16, so bf16 leaves go
+    in as uint16 bit patterns with a manifest, as the JAX package's
+    ``_encode_params`` stores them. Returns (npz bytes, bf16 leaf names).
+    """
+    from flownet2_tf_tpu_torch.training.warmstart import _layers
+
+    flat, bf16_leaves = {}, []
+    for scope, layer in _layers(model):
+        for leaf, p in (("weights", layer.weights), ("biases", layer.biases)):
+            key = f"{scope}/{leaf}"
+            arr = _numpy(p)
+            if leaf == "weights":
+                arr = layer.to_jax(arr)
+            flat[key] = np.ascontiguousarray(arr)
+            if p.dtype == torch.bfloat16:
+                bf16_leaves.append(key)
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    return buf.getvalue(), sorted(bf16_leaves)
+
+
+def _export_one(forward, params, layouts, height, width, batch, device):
+    """Trace ``forward`` at (batch, height, width) into ``.pt2`` bytes."""
+    # two tensors: one object passed twice would be traced as one input
+    image_a, image_b = (torch.zeros((batch, height, width, 3),
+                                    device=device) for _ in range(2))
+    with torch.no_grad():
+        exported = torch.export.export(forward, (params, image_a, image_b))
+    exported.example_inputs = None  # the weights are stored once, apart
+    buf = io.BytesIO()
+    torch.export.save(exported, buf,
+                      extra_files={LAYOUTS_FILE: json.dumps(layouts)})
+    return buf.getvalue()
+
+
+def _export_device(device, platforms):
+    from flownet2_tf_tpu_torch.training.infer import resolve_device
+
+    device = resolve_device(device)
+    if platforms is not None and list(platforms) != [device.type]:
+        raise ValueError(
+            f"platforms {list(platforms)} do not name the export device "
+            f"{device}: an artifact runs on the device it was exported on")
+    return device
+
+
+def _write(out_path, graphs, params_bytes, meta):
+    # stored, not deflated: float weights are near-incompressible, and
+    # deflating FlowNet2's 650 MB costs seconds per export and per load
+    with zipfile.ZipFile(os.fspath(out_path), "w", zipfile.ZIP_STORED) as z:
+        for name, data in graphs:
+            z.writestr(name, data)
+        z.writestr("params.npz", params_bytes)
+        z.writestr("meta.json", json.dumps(meta, indent=1))
+
+
+def export_serving(model_name, params, height, width, out_path, batch=1,
+                   compute_dtype="bfloat16", warp_mode="half",
+                   platforms=None, data_parallel=0, spatial_tiles=0,
+                   spatial_overlap=128, fusion_res=1, device="cuda"):
+    """Export one shape-specialized serving forward to ``out_path``
+    (.flowpak), on ``device``, from a JAX-layout parameter tree.
+
+    ``warp_mode='half'`` bakes the half-res stack-warp serving preset;
+    ``'full'`` keeps exact warps (the parity path). ``platforms``, if
+    given, must name the export device's type. ``data_parallel``,
+    ``spatial_tiles`` (> 1), ``fusion_res=2`` and several platforms are
+    not ported and raise ``SystemExit``. Returns the metadata.
+    """
+    refuse_unported(data_parallel, spatial_tiles, platforms, fusion_res)
+    _check_shape(height, width)
+    device = _export_device(device, platforms)
+    forward, tensors, layouts, (params_bytes, bf16_leaves) = (
+        _serving_forward(model_name, params, compute_dtype, warp_mode,
+                         device))
+    graph = _export_one(forward, tensors, layouts, height, width, batch,
+                        device)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "model": model_name,
+        "batch": batch,
+        "height": height,
+        "width": width,
+        "compute_dtype": compute_dtype,
+        "warp_mode": warp_mode,
+        "platforms": [device.type],
+        "data_parallel": 0,
+        "spatial_tiles": 0,
+        "spatial_overlap": 0,
+        "fusion_res": 1,
+        "bf16_leaves": bf16_leaves,
+    }
+    _write(out_path, [("exported.pt2", graph)], params_bytes, meta)
+    return meta
+
+
+def export_serving_bundle(model_name, params, shapes, out_path,
+                          compute_dtype="bfloat16", warp_mode="half",
+                          platforms=None, device="cuda"):
+    """Export SEVERAL shape-specialized forwards into one ``.flowpak``.
+
+    ``shapes``: iterable of (height, width, batch). All entries share one
+    copy of the weights; ``load_serving`` dispatches per call on the
+    input shape.
+    """
+    refuse_unported(platforms=platforms)
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    if not shapes:
+        raise ValueError("export_serving_bundle needs at least one shape")
+    if len(set(shapes)) != len(shapes):
+        raise ValueError(f"duplicate shapes in bundle: {shapes}")
+    for h, w, _ in shapes:
+        _check_shape(h, w)
+    device = _export_device(device, platforms)
+    forward, tensors, layouts, (params_bytes, bf16_leaves) = (
+        _serving_forward(model_name, params, compute_dtype, warp_mode,
+                         device))
+    graphs = [
+        (f"exported_{i}.pt2",
+         _export_one(forward, tensors, layouts, h, w, b, device))
+        for i, (h, w, b) in enumerate(shapes)
+    ]
+    meta = {
+        "format_version": BUNDLE_FORMAT_VERSION,
+        "model": model_name,
+        "entries": [
+            {"height": h, "width": w, "batch": b} for h, w, b in shapes
+        ],
+        "compute_dtype": compute_dtype,
+        "warp_mode": warp_mode,
+        "platforms": [device.type],
+        "bf16_leaves": bf16_leaves,
+    }
+    _write(out_path, graphs, params_bytes, meta)
+    return meta
+
+
+class ServingModel:
+    """A loaded .flowpak: call with (N, H, W, 3) float32 pairs in [0, 1].
+
+    numpy inputs give a numpy flow; torch tensors give a tensor on the
+    artifact's device (no host copy). Imports no model code: the graph
+    lives in the artifact.
+    """
+
+    def __init__(self, program, params, meta):
+        self._program = program
+        self._params = params
+        self.meta = meta
+        self.device = torch.device(meta["platforms"][0])
+
+    def __call__(self, image_a, image_b):
+        expect = (self.meta["batch"], self.meta["height"],
+                  self.meta["width"], 3)
+        if tuple(image_a.shape) != expect or tuple(image_b.shape) != expect:
+            raise ValueError(
+                f"artifact is specialized to inputs {expect}; got "
+                f"{tuple(image_a.shape)} / {tuple(image_b.shape)}. Export one "
+                "artifact per serving resolution (shapes are static by "
+                "design)."
+            )
+        as_numpy = not isinstance(image_a, torch.Tensor)
+        a, b = (torch.as_tensor(
+                    np.ascontiguousarray(x, np.float32) if as_numpy else x,
+                    dtype=torch.float32, device=self.device)
+                for x in (image_a, image_b))
+        with torch.no_grad(), f32_policy():
+            flow = self._program(self._params, a, b)
+        return flow.cpu().numpy() if as_numpy else flow
+
+    def infer_pair(self, image_a, image_b):
+        """Serve one unbatched (H, W, 3) pair; H/W may be SMALLER than
+        the artifact resolution: inputs are edge-padded up on the host
+        and the flow cropped back. Larger inputs raise.
+
+        On a batch>1 artifact the pair is broadcast to the full batch
+        (batch-1 redundant forwards per call); the first such call
+        warns. Batch callers should call the model with full batches.
+        """
+        a = np.asarray(image_a, np.float32)
+        b = np.asarray(image_b, np.float32)
+        if a.ndim != 3 or a.shape != b.shape:
+            raise ValueError(f"expected matching (H, W, 3) pairs: "
+                             f"{a.shape} / {b.shape}")
+        h, w = a.shape[:2]
+        eh, ew = self.meta["height"], self.meta["width"]
+        if h > eh or w > ew:
+            raise ValueError(
+                f"input {h}x{w} exceeds the artifact resolution "
+                f"{eh}x{ew}; export a larger artifact."
+            )
+        pad = ((0, eh - h), (0, ew - w), (0, 0))
+        a = np.pad(a, pad, mode="edge")
+        b = np.pad(b, pad, mode="edge")
+        batch = self.meta["batch"]
+        if batch == 1:
+            return self(a[None], b[None])[0, :h, :w]
+        if not getattr(self, "_warned_broadcast", False):
+            self._warned_broadcast = True
+            warnings.warn(
+                f"infer_pair on a batch={batch} artifact broadcasts the "
+                f"pair to the full batch ({batch - 1} redundant forwards "
+                f"per call); export a batch=1 artifact for single-pair "
+                f"serving, or call the model with full batches.",
+                stacklevel=2,
+            )
+        a = np.broadcast_to(a, (batch,) + a.shape)
+        b = np.broadcast_to(b, (batch,) + b.shape)
+        return self(a, b)[0, :h, :w]
+
+
+class BundleServingModel:
+    """A multi-shape .flowpak: per-call dispatch on the input shape.
+
+    Entries share one weight copy; ``infer_pair`` picks the smallest
+    batch-1 entry that fits, pads up, and crops back.
+    """
+
+    def __init__(self, models, meta):
+        self._models = models  # {(batch, height, width): ServingModel}
+        self.meta = meta
+
+    @property
+    def shapes(self):
+        return sorted(self._models)
+
+    def __call__(self, image_a, image_b):
+        shape = tuple(image_a.shape)
+        key = shape[:3] if len(shape) == 4 else None
+        if key not in self._models:
+            raise ValueError(
+                f"no bundle entry for inputs {shape}; available "
+                f"(batch, height, width): {self.shapes}"
+            )
+        return self._models[key](image_a, image_b)
+
+    def infer_pair(self, image_a, image_b):
+        a = np.asarray(image_a, np.float32)
+        if a.ndim != 3:
+            raise ValueError(f"expected one (H, W, 3) pair: {a.shape}")
+        h, w = a.shape[:2]
+        fits = [
+            (eh * ew, b, eh, ew)
+            for (b, eh, ew) in self._models
+            if b == 1 and eh >= h and ew >= w
+        ]
+        if not fits:
+            raise ValueError(
+                f"no batch-1 bundle entry fits a {h}x{w} pair; available "
+                f"(batch, height, width): {self.shapes}"
+            )
+        _, b, eh, ew = min(fits)
+        return self._models[(b, eh, ew)].infer_pair(image_a, image_b)
+
+
+def _load_params(npz_bytes, bf16_leaves, layouts, device):
+    """params.npz -> {graph input name: tensor on ``device``} in the
+    graph's layout (bf16 leaves from their bit patterns)."""
+    bf16 = set(bf16_leaves)
+    params = {}
+    with np.load(io.BytesIO(npz_bytes)) as npz:
+        for key in npz.files:
+            arr = np.ascontiguousarray(_FROM_JAX[layouts[key]](npz[key]))
+            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                 if key in bf16 else torch.from_numpy(arr))
+            params[key.replace("/", ".")] = t.to(device)
+    return params
+
+
+def _load_program(z, name):
+    layouts = {LAYOUTS_FILE: ""}
+    program = torch.export.load(io.BytesIO(z.read(name)),
+                                extra_files=layouts)
+    return program.module(), json.loads(layouts[LAYOUTS_FILE])
+
+
+def load_serving(path):
+    """Load a .flowpak written by :func:`export_serving` (single shape) or
+    :func:`export_serving_bundle` (shape-dispatching bundle). An artifact
+    exported on a CUDA device needs one here: there is no fallback."""
+    with zipfile.ZipFile(os.fspath(path)) as z:
+        meta = json.loads(z.read("meta.json"))
+        version = meta.get("format_version")
+        if version not in (FORMAT_VERSION, BUNDLE_FORMAT_VERSION):
+            raise ValueError(f"unsupported .flowpak version: {meta}")
+        if "exported.bin" in z.namelist() or "exported_0.bin" in z.namelist():
+            raise ValueError(
+                f"{path}: a jax.export artifact of the JAX package; the "
+                "torch port loads its own exports (exported*.pt2)")
+        device = torch.device(meta["platforms"][0])
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{path} was exported for cuda, but "
+                "torch.cuda.is_available() is False: export it again with "
+                "--device cpu to serve on the CPU")
+        names = (["exported.pt2"] if version == FORMAT_VERSION else
+                 [f"exported_{i}.pt2" for i in range(len(meta["entries"]))])
+        loaded = [_load_program(z, name) for name in names]
+        params = _load_params(z.read("params.npz"), meta["bf16_leaves"],
+                              loaded[0][1], device)
+    if version == FORMAT_VERSION:
+        return ServingModel(loaded[0][0], params, meta)
+    models = {}
+    for (program, _), entry in zip(loaded, meta["entries"]):
+        models[(entry["batch"], entry["height"], entry["width"])] = (
+            ServingModel(program, params, dict(meta, **entry)))
+    return BundleServingModel(models, meta)

@@ -17,8 +17,6 @@ only per-pair sums and counts cross to the host.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
@@ -32,7 +30,7 @@ from flownet2_tf_tpu_torch.training.warmstart import (
     load_jax_params,
     load_params_tree,
 )
-from flownet2_tf_tpu_torch.utils import flowlib
+from flownet2_tf_tpu_torch.utils.flowlib import write_flow_outputs
 from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
 
 COMPUTE_DTYPES = tuple(_DTYPES)  # ("float32", "bfloat16")
@@ -124,23 +122,6 @@ def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
     write_flow_outputs(flow, out_dir, input_a_path,
                        save_flo=save_flo, save_image=save_image)
     return flow
-
-
-def write_flow_outputs(flow, out_dir, input_a_path, save_flo=True,
-                       save_image=True):
-    """Output convention: <out>/<stem(input_a)>_flow.{flo,png}; returns
-    the stem."""
-    os.makedirs(out_dir, exist_ok=True)
-    stem = os.path.join(
-        os.fspath(out_dir),
-        os.path.splitext(os.path.basename(os.fspath(input_a_path)))[0]
-        + "_flow",
-    )
-    if save_flo:
-        flowlib.write_flow(flow, stem + ".flo")
-    if save_image:
-        flowlib.write_flow_png(flow, stem + ".png")
-    return stem
 
 
 def _aee_on_device(model, batch, compute_dtype):

@@ -264,3 +264,20 @@ def evaluate_flow(gt_flow, pred_flow):
     return flow_error(
         gt_flow[:, :, 0], gt_flow[:, :, 1], pred_flow[:, :, 0], pred_flow[:, :, 1]
     )
+
+
+def write_flow_outputs(flow, out_dir, input_a_path, save_flo=True,
+                       save_image=True):
+    """Output convention: <out>/<stem(input_a)>_flow.{flo,png}; returns
+    the stem."""
+    os.makedirs(out_dir, exist_ok=True)
+    stem = os.path.join(
+        os.fspath(out_dir),
+        os.path.splitext(os.path.basename(os.fspath(input_a_path)))[0]
+        + "_flow",
+    )
+    if save_flo:
+        write_flow(flow, stem + ".flo")
+    if save_image:
+        write_flow_png(flow, stem + ".png")
+    return stem

@@ -76,6 +76,7 @@ def test_port_imports_no_jax():
         "import flownet2_tf_tpu_torch.data.tfrecord\n"
         "import flownet2_tf_tpu_torch.utils.png16\n"
         "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
+        "import flownet2_tf_tpu_torch.tools.aot, flownet2_tf_tpu_torch.net\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flownet2_tf_tpu'))\n"
         "assert not bad, bad\n"
@@ -115,6 +116,7 @@ def test_port_runs_on_the_cpu_without_triton_or_nvcc(tmp_path):
         "import flownet2_tf_tpu_torch.data.tfrecord\n"
         "import flownet2_tf_tpu_torch.utils.png16\n"
         "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
+        "import flownet2_tf_tpu_torch.tools.aot, flownet2_tf_tpu_torch.net\n"
         "from flownet2_tf_tpu_torch.ops import correlation as tc\n"
         "from flownet2_tf_tpu_torch.ops.cuda import _build\n"
         "rng = np.random.RandomState(0)\n"

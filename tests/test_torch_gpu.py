@@ -289,3 +289,56 @@ def test_cli_eval_on_card_matches_cpu(gen, tmp_path, capsys):
         assert launches == (2 if device == "cuda" else 0)
     assert np.isfinite(aee["cuda"])
     assert abs(aee["cuda"] - aee["cpu"]) <= 1e-2
+
+
+@pytest.mark.parametrize("name,warp_mode", [("c", "full"), ("2", "full"),
+                                            ("2", "half")])
+def test_f32_artifact_on_card_matches_eager(gen, tmp_path, name, warp_mode):
+    """An f32 ``.flowpak`` exported and served on the card gives the eager
+    forward's flow (mean EPE <= 1e-4 px) even with TF32 allowed by the
+    caller, and launches the correlation forward once per served call.
+
+    Both sides run cuDNN's deterministic algorithms: its default deconv
+    algorithms sum with atomics, so two runs of one forward differ in
+    the last bits."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.models.registry import get_model
+    from flownet2_tf_tpu_torch.tools import aot
+
+    spec = get_model(name)
+    tree = warmstart.random_jax_params(spec.build("cpu"), seed=0)
+    path = tmp_path / f"{name}.flowpak"
+    meta = aot.export_serving(name, tree, 128, 192, path,
+                              compute_dtype="float32", warp_mode=warp_mode,
+                              device="cuda")
+    assert meta["platforms"] == ["cuda"]
+    sm = aot.load_serving(path)
+    a, b = (torch.rand((1, 128, 192, 3), generator=gen, device="cuda")
+            for _ in range(2))
+    model = warmstart.load_jax_params(
+        spec.build("cuda", warp_res=aot.warp_res_of(warp_mode)), tree)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    try:
+        torch.backends.cudnn.deterministic = True
+        want = infer.forward_flow(model, a, b, torch.float32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        before = dict(correlation_kernel.LAUNCHES_BY_DTYPE)
+        flows = [sm(a, b) for _ in range(3)]
+        launches = {k: correlation_kernel.LAUNCHES_BY_DTYPE[k] - before[k]
+                    for k in before}
+        host = sm(a.cpu().numpy(), b.cpu().numpy())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+    assert launches == {"float32": 3, "bfloat16": 0}
+    for flow in flows:
+        assert flow.device.type == "cuda" and flow.shape == (1, 128, 192, 2)
+        epe = torch.sqrt(((flow - want) ** 2).sum(-1)).mean()
+        assert float(epe) <= 1e-4
+    assert isinstance(host, np.ndarray)
+    np.testing.assert_array_equal(host, flows[0].cpu().numpy())
