@@ -46,7 +46,16 @@ weights:
   the f32 artifact held against the eager forward (with TF32 allowed by
   the caller, too), the half-res artifacts against the same exports
   served on the CPU, ``cli serve`` against ``cli test``; export, load and
-  served against eager ms/pair timed.
+  served against eager ms/pair timed. No caller sets a cuDNN flag: the
+  f32 path's ``f32_policy`` picks cuDNN's deterministic algorithms, and
+  two served calls of each f32 artifact, and two f32 ``cli test`` runs
+  (phases 2 and 12), are bitwise equal.
+* phase 13, the measurement entry points: ``cli bench --model 2`` at
+  448x1024 (f32 exact warps b1, f32 ``--warp_res 2`` b1, bf16 half-res
+  b1 and b8), each gated as the bench gates itself;
+  ``benchlib.train_step_ms`` for FlowNetC b8 320x448 in bf16 and f32 and
+  for FlowNetCSS b8 bf16 with its default frozen scopes; ``cli profile
+  --model 2`` (f32 b1, bf16 b8): device ms per layer scope.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after, the bf16 paths' by the dtype of the features the kernels took.
@@ -127,14 +136,18 @@ PHASE10_BUDGET_S, PHASE11_BUDGET_S = 420.0, 180.0
 SERVE_EPE = 1e-4
 PHASE12_BUDGET_S = 240.0
 SERVE_HW = (448, 1024)
+# phase 13: forwards per bench sample, the train steps' timed run, and the
+# phase's wall-time budget (s)
+BENCH_ITERS, STEP_ITERS = 10, 8
+PHASE13_BUDGET_S = 150.0
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-# correlation launches over every path run (phases 2, 5, 7, 9, 10, 11, 12),
-# by direction and input dtype
+# correlation launches over every path run (phases 2, 5, 7, 9, 10, 11, 12,
+# 13), by direction and input dtype
 PATH_LAUNCHES = {"fwd": {"float32": 0, "bfloat16": 0},
                  "bwd": {"float32": 0, "bfloat16": 0}}
 
@@ -448,13 +461,13 @@ def phase2_main_path(tmp):
     np.testing.assert_allclose(flow_cuda, flow_cpu, rtol=FLOW_RTOL,
                                atol=FLOW_ATOL * scale)
     torch.cuda.synchronize()
-    return tree, ckpt, flow_cpu
+    return tree, ckpt, flow_cpu, flow_cuda
 
 
 def inference_numbers(phase, tree, dtype, batches):
     """FlowNet2 448x1024 on the card at ``dtype`` (f32: TF32 off; bf16:
     the feature layers pre-cast, as ``cli test`` runs it), timed per
-    batch size."""
+    batch size; returns the median ms/pair by batch size."""
     import torch
 
     from flownet2_tf_tpu_torch.models import common
@@ -467,6 +480,7 @@ def inference_numbers(phase, tree, dtype, batches):
         common.cast_params_for_inference(model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     note = " (TF32 off)" if cd == torch.float32 else ""
+    per_pair = {}
     for batch in batches:
         inputs = {k: torch.rand((batch, 448, 1024, 3), generator=gen,
                                 device="cuda")
@@ -502,6 +516,8 @@ def inference_numbers(phase, tree, dtype, batches):
             f"{len(times)} runs (min {min(times):.3f}, max "
             f"{max(times):.3f}), {1000.0 * batch / med:.2f} pairs/s, peak "
             f"memory {peak / 2**20:.1f} MiB")
+        per_pair[batch] = med / batch
+    return per_pair
 
 
 def phase4_backward_vs_plain():
@@ -694,7 +710,7 @@ def training_path(phase, tmp, dtype):
 
 def train_step_numbers(phase, dtype, bwd_ms):
     """FlowNetC train step at b8 320x448 on the card at ``dtype`` (f32:
-    TF32 off)."""
+    TF32 off); returns its median ms."""
     import torch
 
     from flownet2_tf_tpu_torch.data.loader import (
@@ -753,6 +769,7 @@ def train_step_numbers(phase, dtype, bwd_ms):
         f"(phase 4, {dtype} inputs) = {100.0 * bwd_ms / med:.2f}% of the "
         f"step; host synthetic batch {host_ms:.1f} ms (BatchLoader, 4 "
         f"threads)")
+    return med
 
 
 def phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu):
@@ -1183,22 +1200,6 @@ def _cli_export(argv):
     return json.loads(buf.getvalue().strip().splitlines()[-1]), wall
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """cuDNN's deterministic algorithms while the block runs. Its default
-    transposed-conv (deconv) algorithms sum with atomics, so two runs of
-    one forward differ in the last bits; a served flow and an eager one
-    are compared bitwise only with this on, on both sides."""
-    import torch
-
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = prev
-
-
 def serve_worker(spec_path):
     """Phase 12's fresh process: load each artifact of the spec with
     ``tools/aot.py::load_serving`` and serve it; write loads, flows,
@@ -1222,7 +1223,7 @@ def serve_worker(spec_path):
             from flownet2_tf_tpu_torch import cli
 
             buf = io.StringIO()
-            with contextlib.redirect_stdout(buf), _deterministic():
+            with contextlib.redirect_stdout(buf):
                 rc = cli.main(["serve", "--artifact", task["artifact"],
                                "--input_a", task["input_a"], "--input_b",
                                task["input_b"], "--out", task["out"]])
@@ -1245,20 +1246,23 @@ def serve_worker(spec_path):
             with np.load(task["pair"]) as pair:
                 a, b = (torch.from_numpy(pair[k]).to(device)
                         for k in ("a", "b"))
-            with _deterministic():
-                flow = sm(a, b)
+            # no cuDNN flag set here: the served call sets its own
+            flow = sm(a, b)
+            calls += 1
+            if task.get("tf32_check"):
+                # the caller's TF32 flags must not reach the graph
+                torch.backends.cudnn.allow_tf32 = True
+                torch.backends.cuda.matmul.allow_tf32 = True
+                res["tf32_same"] = bool(torch.equal(flow, sm(a, b)))
                 calls += 1
-                if task.get("tf32_check"):
-                    # the caller's TF32 flags must not reach the graph
-                    torch.backends.cudnn.allow_tf32 = True
-                    torch.backends.cuda.matmul.allow_tf32 = True
-                    res["tf32_same"] = bool(torch.equal(flow, sm(a, b)))
-                    calls += 1
             np.save(task["flow_out"], flow.cpu().numpy())
             if device.type == "cuda":
-                # cuDNN's default algorithms: the run-to-run spread
+                # a second call: bitwise the first on the f32 path
+                # (cuDNN's deterministic algorithms); bf16's spread
+                again = sm(a, b)
+                res["same"] = bool(torch.equal(again, flow))
                 res["spread_px"] = float(
-                    torch.sqrt(((sm(a, b) - flow) ** 2).sum(-1)).mean())
+                    torch.sqrt(((again - flow) ** 2).sum(-1)).mean())
                 res.update(timed(lambda: sm(a, b), 1))
                 calls += 14
         elif task["kind"] == "bundle":
@@ -1357,7 +1361,7 @@ def _eager_ms(model, batch, cd, inputs):
     return statistics.median(times) / batch, min(times) / batch
 
 
-def phase12_serving(tmp, tree, ckpt):
+def phase12_serving(tmp, tree, ckpt, phase2_flo):
     """FlowNet2 serving artifacts through ``cli export --aot`` and ``cli
     serve``, each loaded in a fresh process (see the module docstring)."""
     import numpy as np
@@ -1426,9 +1430,12 @@ def phase12_serving(tmp, tree, ckpt):
         served[key] = results[0]
         log(f"phase 12: {key} served in a fresh process ({wall:.1f} s): "
             f"load {results[0]['load_s']:.2f} s, {calls} calls, one "
-            f"correlation launch each on {dtype} features; run-to-run "
-            f"spread of cuDNN's default algorithms {results[0]['spread_px']:.3e}"
-            f" px mean EPE")
+            f"correlation launch each on {dtype} features; two served "
+            f"calls bitwise equal: {results[0]['same']} (mean EPE "
+            f"{results[0]['spread_px']:.3e} px apart)")
+        if dtype == "float32" and not results[0]["same"]:
+            raise AssertionError(f"phase 12 {key}: two f32 served calls "
+                                 "differ")
     results, calls, wall = _finish_worker(_start_worker(tmp, "bundle", [{
         "kind": "bundle", "artifact": paths["bundle"],
         "shapes": [[1, 448, 1024], [1, 384, 1280], [8, 448, 1024]],
@@ -1456,32 +1463,33 @@ def phase12_serving(tmp, tree, ckpt):
     log(f"phase 12: cli serve (fresh process, {wall:.1f} s): {line}")
 
     # the eager forward on the card: cli test, flows, times
-    with _deterministic():
-        test_flo, counts = _cli_test(ckpt, os.path.join(tmp, "out_det"),
-                                     "float32")
+    test_flo, counts = _cli_test(ckpt, os.path.join(tmp, "out_again"),
+                                 "float32")
     _check_counts(counts, 1, 0, "float32", "phase 12 cli test")
+    repeat = bool(np.array_equal(test_flo, phase2_flo))
+    log(f"phase 12: cli test f32 again: .flo bitwise phase 2's: {repeat}")
+    if not repeat:
+        raise AssertionError("phase 12: two f32 cli test runs differ")
     served_flo = flowlib.read_flow(os.path.join(out_dir, "0img0_flow.flo"))
     serve_epe = _epe(served_flo, test_flo)
-    log(f"phase 12: cli serve's .flo against cli test's (both with cuDNN's "
-        f"deterministic algorithms): mean EPE {serve_epe:.3e} px (limit "
-        f"{SERVE_EPE}), max abs {float(np.abs(served_flo - test_flo).max()):.3e}")
+    log(f"phase 12: cli serve's .flo against cli test's: mean EPE "
+        f"{serve_epe:.3e} px (limit {SERVE_EPE}), max abs "
+        f"{float(np.abs(served_flo - test_flo).max()):.3e}")
     correlation_kernel.reset_launch_counts()
     inputs = {"input_a": torch.from_numpy(a_np).cuda(),
               "input_b": torch.from_numpy(b_np).cuda()}
     eager = {}
     f32 = torch.float32
     model = infer.load_model("2", tree, "cuda")
-    with _deterministic():
-        want = infer.forward_flow(model, inputs["input_a"],
-                                  inputs["input_b"], f32).cpu().numpy()
+    want = infer.forward_flow(model, inputs["input_a"],
+                              inputs["input_b"], f32).cpu().numpy()
     eager["f32_full"] = _eager_ms(model, 1, f32, inputs)
     del model
     model = warmstart.load_jax_params(
         get_model("2").build("cuda", warp_res=2), tree)
     eager["f32_half"] = _eager_ms(model, 1, f32, inputs)
-    with _deterministic():
-        eager_half = infer.forward_flow(model, inputs["input_a"],
-                                        inputs["input_b"], f32).cpu().numpy()
+    eager_half = infer.forward_flow(model, inputs["input_a"],
+                                    inputs["input_b"], f32).cpu().numpy()
     common.cast_params_for_inference(model)
     eager["bf16_half"] = _eager_ms(model, 1, torch.bfloat16, inputs)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1498,8 +1506,8 @@ def phase12_serving(tmp, tree, ckpt):
     half_epe = _epe(got["f32_half"][0], cpu["f32_half"][0])
     card_gap = _epe(got["bf16_half"][0], cpu["f32_half"][0])
     cpu_gap = _epe(cpu["bf16_half"][0], cpu["f32_half"][0])
-    log(f"phase 12: f32 full artifact vs eager on the card (both with "
-        f"cuDNN's deterministic algorithms): mean EPE {full_epe:.3e} px "
+    log(f"phase 12: f32 full artifact vs eager on the card: mean EPE "
+        f"{full_epe:.3e} px "
         f"(limit {SERVE_EPE}); with TF32 allowed by the caller the same "
         f"flow: {served['f32_full']['tf32_same']}")
     log(f"phase 12: f32 half artifact, card vs CPU: mean EPE {half_epe:.3e} "
@@ -1533,6 +1541,131 @@ def phase12_serving(tmp, tree, ckpt):
     log(f"phase 12: wall time {wall:.1f} s (budget {PHASE12_BUDGET_S} s"
         f"{', over it' if wall > PHASE12_BUDGET_S else ''})")
 
+
+def _cli_lines(argv):
+    """``cli`` in-process (the kernel counters stay visible); echoes its
+    output and returns its JSON lines."""
+    from flownet2_tf_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def _bench_attempts(result):
+    """The measuring attempts a bench result took: one more than those
+    its ``suspect`` names, unless all of them failed."""
+    from flownet2_tf_tpu_torch.tools import bench
+
+    failed = result.get("suspect", "").count("attempt ")
+    return failed if failed == bench.MEASURE_ATTEMPTS else failed + 1
+
+
+def phase13_measurement(tmp, earlier):
+    """The port's measurement entry points on the card: ``cli bench``,
+    ``benchlib.train_step_ms`` and ``cli profile``, each between a reset
+    and a read of the correlation's launch counts. ``earlier``: the
+    phases' own times of the same shapes, printed beside."""
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.tools import bench, benchlib, profiler
+
+    t0 = time.perf_counter()
+    h, w = SERVE_HW
+    shape = ["--model", "2", "--height", str(h), "--width", str(w),
+             "--device", "cuda", "--iters", str(BENCH_ITERS)]
+    # (what, flags, dtype, warp_mode, the earlier phase's time beside;
+    # phases 3 and 8 run exact warps)
+    benches = (
+        ("f32 b1", ["--compute_dtype", "float32"], "float32", "full",
+         "phase 3 f32 b1"),
+        ("f32 k2 b1", ["--compute_dtype", "float32", "--warp_res", "2"],
+         "float32", "k2", "phase 3 f32 b1"),
+        ("bf16 b1", [], "bfloat16", "half", "phase 8 bf16 b1"),
+        ("bf16 b8", ["--batch", "8"], "bfloat16", "half", "phase 8 bf16 b8"),
+    )
+    results = {}
+    for what, flags, dtype, mode, beside in benches:
+        correlation_kernel.reset_launch_counts()
+        out = _cli_lines(["bench", *shape, *flags])[-1]
+        counts = path_counts()
+        forwards = (bench.WARMUP_FORWARDS
+                    + _bench_attempts(out) * out["repeats"] * BENCH_ITERS)
+        log(f"phase 13: cli bench {what}: {out['ms_per_pair']:.3f} ms/pair "
+            f"(spread {out['spread_pct']}%, mfu {out.get('mfu')}, floor "
+            f"{out.get('floor_ms_analytic')} ms) against {beside}: "
+            f"{earlier[beside]:.3f} ms/pair; correlation launches {counts} "
+            f"for {forwards} forwards")
+        _check_counts(counts, forwards, 0, dtype, f"phase 13 bench {what}")
+        missing = ({"device", "mfu", "floor_ms_analytic", "spread_pct"}
+                   - set(out))
+        if missing or out["warp_mode"] != mode or out["backend"] != "cuda":
+            raise AssertionError(f"phase 13 bench {what}: {out}")
+        results[what] = out
+
+    # marginal_ms: runs of 1 and 1 + STEP_ITERS steps, as warm-ups, then timed
+    steps = 2 * (2 + STEP_ITERS)
+    for model, dtype, beside in (("c", "bfloat16", "phase 9 C bf16 step"),
+                                 ("c", "float32", "phase 6 C f32 step"),
+                                 ("css", "bfloat16", None)):
+        correlation_kernel.reset_launch_counts()
+        ms, per_s = benchlib.train_step_ms(model, TRAIN_BATCH, TRAIN_H,
+                                           TRAIN_W, dtype, iters=STEP_ITERS,
+                                           device="cuda")
+        counts = path_counts()
+        note = (f" against {beside}: {earlier[beside]:.3f} ms" if beside
+                else " (FlowNetCS frozen: no correlation backward)")
+        log(f"phase 13: train_step_ms {model} b{TRAIN_BATCH} {TRAIN_H}x"
+            f"{TRAIN_W} {dtype}: {ms:.3f} ms/step, {per_s:.2f} examples/s"
+            f"{note}; correlation launches {counts} for {steps} steps")
+        _check_counts(counts, steps, steps if model == "c" else 0, dtype,
+                      f"phase 13 train_step_ms {model} {dtype}")
+        results[f"step {model} {dtype}"] = ms
+
+    scopes = ("FlowNetCSS", "FlowNetSD", "fusion", "correlation")
+    for dtype, batch, iters in (("float32", 1, 3), ("bfloat16", 8, 2)):
+        trace_dir = os.path.join(tmp, f"trace_{dtype}_b{batch}")
+        correlation_kernel.reset_launch_counts()
+        last = _cli_lines(["profile", "--model", "2", "--device", "cuda",
+                           "--compute_dtype", dtype, "--batch", str(batch),
+                           "--iters", str(iters), "--top", "12",
+                           "--trace_dir", trace_dir])[-1]
+        counts = path_counts()
+        _check_counts(counts, profiler.WARMUP_FORWARDS + iters, 0, dtype,
+                      f"phase 13 profile {dtype}")
+        with open(os.path.join(last["trace_dir"], "summary.json")) as f:
+            summary = json.load(f)
+        got = {r["name"]: r["device_ms"] for r in summary["scopes"]}
+        kernel = sum(r["device_ms"] for r in summary["kernels"]
+                     if "correlation_fwd" in r["name"])
+        busy = sum(r["device_ms"] for r in summary["kernels"])
+        conv3 = (batch, SERVE_HW[0] // 8, SERVE_HW[1] // 8, 256)
+        bound, by = corr_bound(conv3, 20, 2, dtype)
+        log(f"phase 13: cli profile --model 2 {dtype} b{batch} (per forward, "
+            f"{summary['clock']} ms): "
+            + ", ".join(f"{k} {got.get(k, float('nan')):.3f}" for k in scopes)
+            + f"; correlation_fwd kernel {kernel:.4f} at {conv3} (bound "
+            f"{bound:.4f} ms, {by}, {100.0 * bound / kernel:.1f}% of it); "
+            f"all kernels {busy:.3f}")
+        if summary["clock"] != "device" or not all(got.get(k, 0) > 0
+                                                   for k in scopes):
+            raise AssertionError(f"phase 13 profile {dtype}: scopes {got}")
+        if not 0 < kernel < got["correlation"]:
+            raise AssertionError(f"phase 13 profile {dtype}: correlation "
+                                 f"kernel {kernel} ms, scope {got}")
+        results[f"profile {dtype} b{batch}"] = {k: got[k] for k in scopes}
+
+    wall = time.perf_counter() - t0
+    log(f"phase 13: wall time {wall:.1f} s (budget {PHASE13_BUDGET_S} s)")
+    if wall > PHASE13_BUDGET_S:
+        raise AssertionError("phase 13 overran its time budget")
+    return results
+
+
 def main():
     import torch
 
@@ -1548,21 +1681,29 @@ def main():
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
-        tree, ckpt, flow_cpu = phase2_main_path(tmp)
-        inference_numbers(3, tree, "float32", (1,))
+        tree, ckpt, flow_cpu, flow_cuda = phase2_main_path(tmp)
+        # each phase's own time of a shape phase 13 measures again
+        earlier = {}
+        f32 = inference_numbers(3, tree, "float32", (1,))
+        earlier["phase 3 f32 b1"] = f32[1]
         bwd_worst, bwd_timings = phase4_backward_vs_plain()
         with tempfile.TemporaryDirectory() as train_tmp:
             training_path(5, train_tmp, "float32")
-        train_step_numbers(6, "float32", bwd_timings["float32"]["ms"])
+        earlier["phase 6 C f32 step"] = train_step_numbers(
+            6, "float32", bwd_timings["float32"]["ms"])
         phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu)
-        inference_numbers(8, tree, "bfloat16", (1, 8))
+        bf16 = inference_numbers(8, tree, "bfloat16", (1, 8))
+        earlier["phase 8 bf16 b1"], earlier["phase 8 bf16 b8"] = (bf16[1],
+                                                                  bf16[8])
         with tempfile.TemporaryDirectory() as train_tmp:
             training_path(9, train_tmp, "bfloat16")
-        train_step_numbers(9, "bfloat16", bwd_timings["bfloat16"]["ms"])
+        earlier["phase 9 C bf16 step"] = train_step_numbers(
+            9, "bfloat16", bwd_timings["bfloat16"]["ms"])
         phase10_eval(tmp, ckpt)
         with tempfile.TemporaryDirectory() as train_tmp:
             phase11_train_from_disk(train_tmp)
-        phase12_serving(tmp, tree, ckpt)
+        phase12_serving(tmp, tree, ckpt, flow_cuda)
+        phase13_measurement(tmp, earlier)
 
     log(f"chip_smoke.py: every phase passed in "
         f"{time.perf_counter() - t0:.1f} s")

@@ -1,7 +1,7 @@
 """CLI of the torch port: ``python -m flownet2_tf_tpu_torch.cli
-{train,test,eval,make-tfrecords,export,serve,info}``.
+{train,test,eval,bench,profile,make-tfrecords,export,serve,info}``.
 
-Port of seven subcommands of ``flownet2_tf_tpu/cli.py``:
+Port of nine subcommands of ``flownet2_tf_tpu/cli.py``:
 
 * ``train``: training, bf16 by default as in the JAX package
   (``--compute_dtype float32`` for the f32 path), on a dataset's raw
@@ -24,14 +24,26 @@ Port of seven subcommands of ``flownet2_tf_tpu/cli.py``:
   (``tools/aot.py``; ``--shapes`` for a multi-shape bundle), bf16 with
   half-res stack warps by default, as in the JAX package.
 * ``serve``: a ``.flowpak`` on an image pair, with no model code loaded.
+* ``bench``: frame pairs/s of a model forward (``tools/bench.py``): the
+  median of gated samples, CUDA-event times on a card, one JSON line.
+* ``profile``: ``iters`` forwards under ``torch.profiler``
+  (``tools/profiler.py``): a Chrome trace, and the time per kernel and
+  per layer scope; the last line is ``{"trace_dir": ...}``.
 * ``info``: per-scope parameter counts; ``--flops`` counts the forward's
-  FLOPs with ``torch.utils.flop_counter``.
+  FLOPs with ``torch.utils.flop_counter`` (``tools/benchlib.py``).
+
+The model subcommands (``train``, ``test``, ``eval``, ``bench``,
+``profile``) take the JAX package's warp flags: ``--warp_res {1,2,4}``
+(or ``--half_res_warp`` = 2) builds the stacked models with their stack
+warps on that grid; models without stack warps run unchanged.
+``--f32_features`` and ``--fusion_res`` other than their defaults are
+refused (ROADMAP Queue 1 item 18).
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
-card raises); ``serve`` runs on the device the artifact was exported on.
-``convert``, ``bench``, ``profile``, data-parallel and spatial-tile
-exports, and the approximation knobs other than the export's
-``--warp_mode`` (``--fusion_res``, ``--f32_features``, the bf16
+card raises; on ``cpu`` the bench and the profiler report CPU times);
+``serve`` runs on the device the artifact was exported on. ``convert``,
+data-parallel and spatial-tile exports, and the approximation knobs
+other than the warps (``--fusion_res``, ``--f32_features``, the bf16
 interconvs) are not ported yet.
 """
 
@@ -80,6 +92,7 @@ def cmd_train(args):
         eval_every=args.eval_every,
         transfer_flow_dtype=args.transfer_flow_dtype,
         device=args.device,
+        warp_res=_warp_res(args),
     )
     trainer = Trainer(cfg)
     eval_loader = None
@@ -158,6 +171,7 @@ def cmd_test(args):
         save_flo=not args.no_flo,
         compute_dtype=args.compute_dtype,
         device=args.device,
+        warp_res=_warp_res(args),
     )
     print(
         json.dumps(
@@ -187,7 +201,7 @@ def cmd_eval(args):
             args.model, params, dataset,
             compute_dtype=args.compute_dtype, limit=args.limit,
             verbose=args.verbose, batch_size=args.eval_batch,
-            device=args.device,
+            device=args.device, warp_res=_warp_res(args),
         )
         n = min(len(dataset), args.limit or len(dataset))
     print(json.dumps({
@@ -215,7 +229,8 @@ def _eval_saving_outputs(args, dataset, params):
 
     cd = compute_dtype_of(args.compute_dtype)
     device = infer.resolve_device(args.device)
-    model = infer.inference_model(args.model, params, device, cd)
+    model = infer.inference_model(args.model, params, device, cd,
+                                  _warp_res(args))
     os.makedirs(args.save_outputs, exist_ok=True)
     n = min(len(dataset), args.limit or len(dataset))
     batch = max(1, int(args.eval_batch))
@@ -286,6 +301,43 @@ def _make_eval_dataset(args):
     if name in ("sdhom", "chairs_sdhom"):
         return L.ChairsSDHomDataset(args.data_root)
     raise SystemExit(f"unknown eval dataset {args.dataset!r}")
+
+
+def cmd_bench(args):
+    from flownet2_tf_tpu_torch.tools import bench as bench_mod
+
+    result = bench_mod.run_bench(
+        model=args.model,
+        height=args.height,
+        width=args.width,
+        batch=args.batch,
+        iters=args.iters,
+        compute_dtype=args.compute_dtype,
+        device=args.device,
+        warp_res=_warp_res(args, default=None),
+    )
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_profile(args):
+    from flownet2_tf_tpu_torch.tools import profiler
+
+    trace_dir = profiler.trace_model(
+        model_name=args.model,
+        height=args.height,
+        width=args.width,
+        batch=args.batch,
+        iters=args.iters,
+        compute_dtype=args.compute_dtype,
+        trace_dir=args.trace_dir,
+        warp_mode=args.warp_mode,
+        device=args.device,
+        warp_res=_warp_res(args, default=None),
+    )
+    profiler.print_summary(trace_dir, top=args.top)
+    print(json.dumps({"trace_dir": trace_dir}))
+    return 0
 
 
 def cmd_make_tfrecords(args):
@@ -376,19 +428,12 @@ def cmd_export(args):
     return 0
 
 
-FLOPS_COUNTED = ("convolutions, transposed convolutions and the "
-                 "correlation (2 N H W D^2 C); not the warps, resizes, "
-                 "norms or activations")
-
-
 def cmd_info(args):
     """Model card: per-scope parameter counts (+ FLOPs/pair with
     --flops, counted by torch.utils.flop_counter on the meta device: no
     data, no card)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
     from flownet2_tf_tpu_torch.models.registry import get_model
+    from flownet2_tf_tpu_torch.tools import benchlib
 
     spec = get_model(args.model)
     model = spec.build("meta")
@@ -403,14 +448,11 @@ def cmd_info(args):
         "params_by_scope": dict(sorted(by_scope.items())),
     }
     if args.flops:
-        img = torch.zeros((args.batch, args.height, args.width, 3),
-                          device="meta")
-        with FlopCounterMode(display=False) as counter:
-            model({"input_a": img, "input_b": img}, torch.bfloat16)
-        flops = counter.get_total_flops()
+        flops = benchlib.count_flops(args.model, args.batch, args.height,
+                                     args.width, "bfloat16")
         out["gflops_per_batch"] = round(flops / 1e9, 3)
         out["gflops_per_pair"] = round(flops / 1e9 / args.batch, 3)
-        out["flops_counted"] = FLOPS_COUNTED
+        out["flops_counted"] = benchlib.FLOPS_COUNTED
         out["at"] = f"{args.batch}x{args.height}x{args.width} bf16"
     print(json.dumps(out, indent=1))
     return 0
@@ -537,6 +579,36 @@ def build_parser():
     _add_device_arg(p)
     p.set_defaults(fn=cmd_eval)
 
+    p = sub.add_parser("bench", help="throughput benchmark")
+    _add_model_arg(p)
+    p.add_argument("--height", type=int, default=448)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser(
+        "profile", help="trace + per-kernel and per-layer time summary")
+    _add_model_arg(p)
+    p.add_argument("--height", type=int, default=448)
+    p.add_argument("--width", type=int, default=1024)
+    p.add_argument("--batch", type=int, default=1)
+    p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--top", type=int, default=20)
+    p.add_argument("--trace_dir", default=None,
+                   help="default: flownet2_trace in the temporary directory")
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--warp_mode", default=None, choices=["full", "half"],
+                   help="'half' profiles the serving preset (half-res "
+                        "stack warps); 'full' pins exact warps; default "
+                        "follows --warp_res (exact if unset)")
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_profile)
+
     p = sub.add_parser(
         "make-tfrecords", aliases=["make_tfrecords"],
         help="raw FlyingChairs -> reference-layout TFRecords",
@@ -631,6 +703,50 @@ def _add_model_arg(p):
         "--model", default="s",
         help="model name: s, c, cs, css, sd, 2 (or flownet_* aliases)",
     )
+    p.add_argument(
+        "--half_res_warp", action="store_true",
+        help="run stack warps at half resolution (an approximation); "
+             "= --warp_res 2",
+    )
+    p.add_argument(
+        "--warp_res", default=None, type=int, choices=[1, 2, 4],
+        help="stack-warp grid factor: 1 exact, 2 half (= "
+             "--half_res_warp), 4 quarter; overrides --half_res_warp; "
+             "models without stack warps run unchanged",
+    )
+    p.add_argument(
+        "--f32_features", default=None, choices=["highest", "default"],
+        help="precision of the f32 feature convs: highest (the default, "
+             "the parity setting); 'default' is not ported yet (ROADMAP "
+             "Queue 1 item 18)",
+    )
+    p.add_argument(
+        "--fusion_res", default=None, type=int, choices=[1, 2],
+        help="FlowNet2 fusion-net grid factor: 1 exact (the default); 2 "
+             "is not ported yet (ROADMAP Queue 1 item 18)",
+    )
+
+
+def _warp_res(args, default=1):
+    """The stack-warp grid factor the warp flags ask for, ``default``
+    when neither is given (``--warp_res`` wins over ``--half_res_warp``;
+    the bench and the profiler take None: their own default)."""
+    if args.warp_res:
+        return args.warp_res
+    return 2 if args.half_res_warp else default
+
+
+def _refuse_unported_knobs(args):
+    """SystemExit for the approximation knobs the port does not have."""
+    if getattr(args, "f32_features", None) not in (None, "highest"):
+        raise SystemExit(
+            f"--f32_features {args.f32_features} is not ported yet "
+            "(ROADMAP Queue 1 item 18); the f32 path runs at full f32 "
+            "precision (TF32 off)")
+    if getattr(args, "fusion_res", None) not in (None, 1):
+        raise SystemExit(
+            f"--fusion_res {args.fusion_res} (half-res fusion) is not "
+            "ported yet (ROADMAP Queue 1 item 18)")
 
 
 def _add_device_arg(p):
@@ -641,6 +757,7 @@ def _add_device_arg(p):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    _refuse_unported_knobs(args)
     return args.fn(args)
 
 

@@ -27,6 +27,7 @@ are TPU layout work and are not ported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -43,6 +44,22 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # H100 (PERF.md): cuDNN's f32 convs work in NCHW and transpose around a
 # channels_last input; its bf16 tensor-core convs work in NHWC.
 _CHANNELS_LAST = {torch.float32: False, torch.bfloat16: True}
+
+
+def scope(name: str):
+    """A profiler scope named like the JAX package's ``jax.named_scope``
+    at the same site: ``torch.profiler.record_function(name)`` while a
+    profiler is active (``tools/profiler.py`` reads the scopes' device
+    time from it), a null context otherwise.
+
+    JAX's scopes are trace-time metadata with no runtime op; a
+    ``record_function`` is a dispatcher call on every entry. The gate
+    keeps the launch-bound forward from paying for about a hundred of
+    them per call, and keeps ``torch.export`` from tracing profiler
+    nodes into a served graph."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def compute_dtype_of(name) -> torch.dtype:
@@ -237,8 +254,69 @@ class Deconv(nn.Module):
         return f"{i}->{o}, k={k}, act={self.act}"
 
     def forward(self, x, compute_dtype=None):
+        if io_dtype(compute_dtype, True) == torch.float32:  # the f32 path
+            return _layer_forward(self, x, compute_dtype, _DeconvF32.apply)
         return _layer_forward(self, x, compute_dtype, F.conv_transpose2d,
                               stride=2, padding=1)
+
+
+class _DeconvF32(torch.autograd.Function):
+    """The f32 path's deconv: forward :func:`deconv_subpixel`, backward
+    the transposed conv's own (a strided conv for the input's gradient,
+    and the weight gradient), so an f32 train step computes the
+    transposed conv's gradients with cuDNN's algorithms for them
+    (``tools/determinism_ab.py`` times the step both ways)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w)
+        return deconv_subpixel(x, w, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        return torch.ops.aten.convolution_backward(
+            grad.contiguous(), x, w, [w.shape[1]], [2, 2], [1, 1], [1, 1],
+            True, [0, 0], 1, list(ctx.needs_input_grad))
+
+
+def deconv_subpixel(x, w, b):
+    """``conv_transpose2d(x, w, b, stride=2, padding=1)`` of a 4x4 kernel
+    as one ``conv2d`` and an interleave: the f32 path's deconv.
+
+    Output pixel (2p + a, 2q + b) of the transposed conv reads the 2x2
+    input window at rows p - 1 + a, p + a (and columns alike) through 4
+    of the 16 taps, so the four output parities are the four 2x2 kernels
+    of the spatially flipped weight's even and odd taps: one conv2d with
+    4 x Cout outputs over the input padded by 1, each parity's plane cut
+    at its offset. The same multiply-adds as the transposed conv, summed
+    in another order.
+
+    Why: the f32 path runs cuDNN's deterministic algorithms
+    (``f32_policy``), and those have no fast transposed conv in f32: on
+    the H100 ``fuse_deconv0`` (162 -> 16 channels, 224x512 -> 448x1024)
+    took 49.8 ms against 0.47 ms with the default, atomic ones
+    (``tools/determinism_ab.py``, PERF.md). A forward conv's algorithms
+    are deterministic and fast alike. Under the bf16 policy every deconv
+    stays cuDNN's transposed conv: its bf16 ones lose nothing to the
+    deterministic algorithms, and its f32 flow upsamplers (2 channels)
+    take channels_last activations, which this form would turn into
+    NCHW copies."""
+    n, cin, h, wd = x.shape
+    cout = w.shape[1]
+    if tuple(w.shape[2:]) != (4, 4):
+        raise ValueError(f"deconv_subpixel takes 4x4 kernels, got "
+                         f"{tuple(w.shape)}")
+    # flipped row 2r + a (r: window row, a: output parity), columns alike
+    k = (w.flip((2, 3)).reshape(cin, cout, 2, 2, 2, 2)
+         .permute(1, 3, 5, 0, 2, 4).reshape(cout * 4, cin, 2, 2))
+    planes = F.conv2d(x, k, b.repeat_interleave(4), padding=1).view(
+        n, cout, 2, 2, h + 1, wd + 1)
+    out = planes.new_empty(n, cout, h, 2, wd, 2)
+    for a in (0, 1):
+        for c in (0, 1):
+            out[:, :, :, a, :, c] = planes[:, :, a, c, a:a + h, c:c + wd]
+    return out.view(n, cout, 2 * h, 2 * wd)
 
 
 def cast_params_for_inference(module: nn.Module,

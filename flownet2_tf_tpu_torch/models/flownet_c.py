@@ -67,26 +67,30 @@ class FlowNetC(nn.Module):
         b = inputs["input_b"]
         n, in_h, in_w, _ = a.shape
         common.check_divisible_by_64(in_h, in_w)
-        with common.f32_policy():
+        with common.f32_policy(cd):
             # both towers in one batched pass (shared weights)
             x = common.nchw(torch.cat([a, b], dim=0), cd)
             for name, _, _, _ in TOWER:
-                x = getattr(self, name)(x, cd)
+                with common.scope(f"tower_{name}"):
+                    x = getattr(self, name)(x, cd)
                 if name == "conv2":
                     conv2_a = x[:n]
             feat_a, feat_b = x[:n], x[n:]
-            # the kernel reads NHWC-contiguous features: one copy each of
-            # NCHW (f32) features, none of channels_last (bf16) ones
-            cc = correlation(common.nhwc(feat_a).contiguous(),
-                             common.nhwc(feat_b).contiguous(),
-                             **CORR_KWARGS)
-            cc = common.leaky_relu(cc)
-            redir = self.conv_redir(feat_a, cd)
+            with common.scope("correlation"):
+                # the kernel reads NHWC-contiguous features: one copy each
+                # of NCHW (f32) features, none of channels_last (bf16) ones
+                cc = correlation(common.nhwc(feat_a).contiguous(),
+                                 common.nhwc(feat_b).contiguous(),
+                                 **CORR_KWARGS)
+                cc = common.leaky_relu(cc)
+            with common.scope("conv_redir"):
+                redir = self.conv_redir(feat_a, cd)
             x = torch.cat([redir, common.nchw(cc, cd).to(redir.dtype)],
                           dim=1)
             acts = {"conv2": conv2_a}
             for name, _, _, _ in TAIL:
-                x = getattr(self, name)(x, cd)
+                with common.scope(name):
+                    x = getattr(self, name)(x, cd)
                 acts[name] = x
             return flownet_s.decoder(self, acts, (in_h, in_w), cd)
 

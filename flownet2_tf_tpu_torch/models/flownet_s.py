@@ -65,20 +65,24 @@ def decoder(net: nn.Module, acts: dict, input_hw, compute_dtype=None,
     cd = compute_dtype
     preds = {}
     x = acts[top]
-    flow = net.predict_flow6(x, cd)
+    with common.scope("predict_flow6"):
+        flow = net.predict_flow6(x, cd)
     preds["predict_flow6"] = common.nhwc(flow)
     for lvl in (5, 4, 3, 2):
-        up_feat = getattr(net, f"deconv{lvl}")(x, cd)
-        up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
-        skip = acts[SKIP[lvl]]
-        # the flow stays f32 in preds; only the concat copy takes the
-        # skip's dtype, so the feature map is not promoted back to f32
-        x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
-        flow = getattr(net, f"predict_flow{lvl}")(x, cd)
+        with common.scope(f"refine{lvl}"):
+            up_feat = getattr(net, f"deconv{lvl}")(x, cd)
+            up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow,
+                                                                     cd)
+            skip = acts[SKIP[lvl]]
+            # the flow stays f32 in preds; only the concat copy takes the
+            # skip's dtype, so the feature map is not promoted back to f32
+            x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+            flow = getattr(net, f"predict_flow{lvl}")(x, cd)
         preds[f"predict_flow{lvl}"] = common.nhwc(flow)
-    preds["flow"] = resize_bilinear_tf1(
-        preds["predict_flow2"] * 20.0, input_hw[0], input_hw[1]
-    )
+    with common.scope("upsample_out"):
+        preds["flow"] = resize_bilinear_tf1(
+            preds["predict_flow2"] * 20.0, input_hw[0], input_hw[1]
+        )
     return preds
 
 
@@ -106,11 +110,12 @@ class FlowNetS(nn.Module):
             x = inputs
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
-        with common.f32_policy():
+        with common.f32_policy(compute_dtype):
             x = common.nchw(x, compute_dtype)
             acts = {}
             for name, _, _, _ in ENCODER:
-                x = getattr(self, name)(x, compute_dtype)
+                with common.scope(name):
+                    x = getattr(self, name)(x, compute_dtype)
                 acts[name] = x
             return decoder(self, acts, (in_h, in_w), compute_dtype)
 

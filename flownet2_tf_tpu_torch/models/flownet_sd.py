@@ -73,28 +73,33 @@ class FlowNetSD(nn.Module):
             x = inputs
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
-        with common.f32_policy():
+        with common.f32_policy(cd):
             x = common.nchw(x, cd)
             acts = {}
             for name, _, _, _ in ENCODER:
-                x = getattr(self, name)(x, cd)
+                with common.scope(name):
+                    x = getattr(self, name)(x, cd)
                 acts[name] = x
 
             preds = {}
-            flow = self.predict_flow6(x, cd)
+            with common.scope("predict_flow6"):
+                flow = self.predict_flow6(x, cd)
             preds["predict_flow6"] = common.nhwc(flow)
             for lvl in (5, 4, 3, 2):
-                up_feat = getattr(self, f"deconv{lvl}")(x, cd)
-                up_flow = getattr(self, f"upsample_flow{lvl + 1}to{lvl}")(
-                    flow, cd)
-                skip = acts[SKIP[lvl]]
-                x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
-                inter = getattr(self, f"interconv{lvl}")(x, cd)
-                flow = getattr(self, f"predict_flow{lvl}")(inter, cd)
+                with common.scope(f"refine{lvl}"):
+                    up_feat = getattr(self, f"deconv{lvl}")(x, cd)
+                    up_flow = getattr(
+                        self, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
+                    skip = acts[SKIP[lvl]]
+                    x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)],
+                                  dim=1)
+                    inter = getattr(self, f"interconv{lvl}")(x, cd)
+                    flow = getattr(self, f"predict_flow{lvl}")(inter, cd)
                 preds[f"predict_flow{lvl}"] = common.nhwc(flow)
-            preds["flow"] = resize_bilinear_tf1(
-                preds["predict_flow2"] * 20.0, in_h, in_w
-            )
+            with common.scope("upsample_out"):
+                preds["flow"] = resize_bilinear_tf1(
+                    preds["predict_flow2"] * 20.0, in_h, in_w
+                )
             return preds
 
 

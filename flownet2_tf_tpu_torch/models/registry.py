@@ -44,6 +44,12 @@ class ModelSpec:
                              f"must be 1, got {warp_res!r}")
         return self.cls().to(device).eval()
 
+    def warp_res_for(self, warp_res: int) -> int:
+        """The ``warp_res`` to build with: ``warp_res`` for a model with
+        stack warps, 1 for one without, which a warp flag leaves
+        unchanged (as the JAX package's warp knobs leave it)."""
+        return int(warp_res) if self.stack_warps else 1
+
 
 _REGISTRY = {
     "s": ModelSpec("FlowNetS", flownet_s.FlowNetS, flownet_s.loss),

@@ -69,10 +69,13 @@ class FlowNetCS(nn.Module):
 
     def forward(self, inputs, compute_dtype=None):
         cd = compute_dtype
-        preds_c = self.FlowNetC(inputs, cd)
-        x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_c["flow"], cd, self.warp_res)
-        preds = self.FlowNetS(x, cd)
+        with common.scope("FlowNetC"):
+            preds_c = self.FlowNetC(inputs, cd)
+        with common.scope("FlowNetS_2"):
+            with common.scope("stage2_assembly"):
+                x = _second_stage_input(inputs["input_a"], inputs["input_b"],
+                                        preds_c["flow"], cd, self.warp_res)
+            preds = self.FlowNetS(x, cd)
         preds["flow_c"] = preds_c["flow"]
         return preds
 
@@ -90,10 +93,13 @@ class FlowNetCSS(nn.Module):
 
     def forward(self, inputs, compute_dtype=None):
         cd = compute_dtype
-        preds_cs = self.FlowNetCS(inputs, cd)
-        x = _second_stage_input(inputs["input_a"], inputs["input_b"],
-                                preds_cs["flow"], cd, self.warp_res)
-        preds = self.FlowNetS(x, cd)
+        with common.scope("FlowNetCS"):
+            preds_cs = self.FlowNetCS(inputs, cd)
+        with common.scope("FlowNetS_3"):
+            with common.scope("stage2_assembly"):
+                x = _second_stage_input(inputs["input_a"], inputs["input_b"],
+                                        preds_cs["flow"], cd, self.warp_res)
+            preds = self.FlowNetS(x, cd)
         preds["flow_cs"] = preds_cs["flow"]
         return preds
 
@@ -154,8 +160,10 @@ class FlowNet2(nn.Module):
         input_a = inputs["input_a"]
         input_b = inputs["input_b"]
         n, in_h, in_w, _ = input_a.shape
-        preds_css = self.FlowNetCSS(inputs, cd)
-        preds_sd = self.FlowNetSD(inputs, cd)
+        with common.scope("FlowNetCSS"):
+            preds_css = self.FlowNetCSS(inputs, cd)
+        with common.scope("FlowNetSD"):
+            preds_sd = self.FlowNetSD(inputs, cd)
         flow_css = preds_css["flow"]
         flow_sd = preds_sd["flow"]
 
@@ -180,7 +188,7 @@ class FlowNet2(nn.Module):
             ],
             dim=-1,
         )
-        with common.f32_policy():
+        with common.f32_policy(cd), common.scope("fusion"):
             preds = self._fusion_head(common.nchw(x, cd), cd)
         preds["flow"] = resize_bilinear_tf1(
             preds["predict_flow0"] * 20.0, in_h, in_w

@@ -144,7 +144,7 @@ def _serving_forward(model_name, tree, compute_dtype, warp_mode, device):
     spec = get_model(model_name)
     # a model without stack warps has nothing to coarsen (as in the JAX
     # package, whose knob such a model never reads)
-    warp_res = warp_res_of(warp_mode) if spec.stack_warps else 1
+    warp_res = spec.warp_res_for(warp_res_of(warp_mode))
     model = spec.build(device, warp_res=warp_res)
     load_jax_params(model, tree)
     if cd == torch.bfloat16:
@@ -343,7 +343,11 @@ class ServingModel:
                     np.ascontiguousarray(x, np.float32) if as_numpy else x,
                     dtype=torch.float32, device=self.device)
                 for x in (image_a, image_b))
-        with torch.no_grad(), f32_policy():
+        # f32_policy's flags follow the export's policy (process state,
+        # not graph nodes)
+        cd = (torch.bfloat16 if self.meta["compute_dtype"] == "bfloat16"
+              else torch.float32)
+        with torch.no_grad(), f32_policy(cd):
             flow = self._program(self._params, a, b)
         return flow.cpu().numpy() if as_numpy else flow
 

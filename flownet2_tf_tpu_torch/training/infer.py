@@ -48,11 +48,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def load_model(model_name, params, device="cuda"):
-    """Build ``model_name`` on ``device`` and fill it from a JAX-layout
-    tree; returns the module in eval mode."""
+def load_model(model_name, params, device="cuda", warp_res=1):
+    """Build ``model_name`` on ``device`` with its stack warps at
+    ``warp_res`` (1 exact, 2 half, 4 quarter; models without stack warps
+    ignore it) and fill it from a JAX-layout tree; returns the module in
+    eval mode."""
     device = resolve_device(device)
-    model = get_model(model_name).build(device)
+    spec = get_model(model_name)
+    model = spec.build(device, warp_res=spec.warp_res_for(warp_res))
     return load_jax_params(model, params)
 
 
@@ -79,26 +82,27 @@ def forward_flow(model, image_a, image_b, compute_dtype=None):
         return preds["flow"][:, :h, :w, :]
 
 
-def inference_model(model_name, params, device, compute_dtype):
+def inference_model(model_name, params, device, compute_dtype, warp_res=1):
     """``load_model``, with the feature layers pre-cast once when
     ``compute_dtype`` (a torch dtype) is bfloat16."""
-    model = load_model(model_name, params, device)
+    model = load_model(model_name, params, device, warp_res)
     if compute_dtype == torch.bfloat16:
         cast_params_for_inference(model, compute_dtype)
     return model
 
 
 def infer_flow(model_name, params, image_a, image_b, device="cuda",
-               compute_dtype="float32"):
+               compute_dtype="float32", warp_res=1):
     """Run a model on a single pair or batch; returns full-res flow.
 
     ``image_a/b``: (H, W, 3) or (N, H, W, 3) float arrays in [0, 1].
     ``params``: a JAX-layout tree. ``compute_dtype``: 'float32' or
-    'bfloat16'. Returns a numpy f32 array.
+    'bfloat16'. ``warp_res``: the stack warps' grid factor (``cli
+    --warp_res``). Returns a numpy f32 array.
     """
     cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
-    model = inference_model(model_name, params, device, cd)
+    model = inference_model(model_name, params, device, cd, warp_res)
     a = torch.as_tensor(np.asarray(image_a, np.float32), device=device)
     b = torch.as_tensor(np.asarray(image_b, np.float32), device=device)
     squeeze = a.ndim == 3
@@ -110,7 +114,7 @@ def infer_flow(model_name, params, image_a, image_b, device="cuda",
 
 def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
               save_image=True, save_flo=True, compute_dtype="float32",
-              device="cuda"):
+              device="cuda", warp_res=1):
     """Pair of image files -> .png / .flo outputs; returns the predicted
     (H, W, 2) flow."""
     compute_dtype_of(compute_dtype)
@@ -118,7 +122,7 @@ def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
     params = load_params_tree(checkpoint)
     a, b = load_image_pair(input_a_path, input_b_path)
     flow = infer_flow(model_name, params, a, b, device=device,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, warp_res=warp_res)
     write_flow_outputs(flow, out_dir, input_a_path,
                        save_flo=save_flo, save_image=save_image)
     return flow
@@ -173,7 +177,8 @@ def _bucket_batch(item, multiple=64):
 
 
 def evaluate_dataset(model_name, params, dataset, compute_dtype="float32",
-                     limit=None, verbose=False, batch_size=1, device="cuda"):
+                     limit=None, verbose=False, batch_size=1, device="cuda",
+                     warp_res=1):
     """Average endpoint error over a dataset of {image_a, image_b, flow}:
     the mean of per-pair AEEs.
 
@@ -186,7 +191,7 @@ def evaluate_dataset(model_name, params, dataset, compute_dtype="float32",
     cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     n = len(dataset) if limit is None else min(limit, len(dataset))
-    model = inference_model(model_name, params, device, cd)
+    model = inference_model(model_name, params, device, cd, warp_res)
     batch_size = max(1, int(batch_size))
     aee_sum = 0.0
     seen = 0

@@ -115,6 +115,9 @@ class TrainConfig:
     # device, so the loss and augmentation math stay f32)
     transfer_flow_dtype: str = "float32"
     device: str = "cuda"
+    # the stack warps' grid factor (1 exact, 2 half, 4 quarter); models
+    # without stack warps ignore it
+    warp_res: int = 1
 
 
 @dataclasses.dataclass
@@ -162,7 +165,9 @@ class Trainer:
         """MSRA-initialised model (``torch.Generator`` seeded by
         ``config.seed``) on the device, frozen scopes frozen, Adam over
         the rest, step 0."""
-        model = self.spec.build(self.device).train()
+        model = self.spec.build(
+            self.device, warp_res=self.spec.warp_res_for(self.config.warp_res)
+        ).train()
         msra_init_(model, torch.Generator().manual_seed(self.config.seed))
         optim.zero_frozen_grads(model, self.frozen)
         trainable = [p for p in model.parameters() if p.requires_grad]
@@ -218,9 +223,12 @@ class Trainer:
         """The batch as f32 device tensors: images cross in their own
         dtype (uint8 or float32) and are converted on the device; the flow
         crosses as ``flow_wire`` (cast on the host) and is cast back on the
-        device."""
-        image_a, image_b, flow = (torch.as_tensor(np.asarray(batch[k]))
-                                  for k in ("image_a", "image_b", "flow"))
+        device. Tensors already on the device (a prefetched batch) stay
+        there."""
+        image_a, image_b, flow = (
+            batch[k] if isinstance(batch[k], torch.Tensor)
+            else torch.as_tensor(np.asarray(batch[k]))
+            for k in ("image_a", "image_b", "flow"))
         return (_images_to_float(image_a.to(self.device)),
                 _images_to_float(image_b.to(self.device)),
                 flow.to(flow_wire).to(self.device).float())
@@ -246,7 +254,7 @@ class Trainer:
                 f"({image_a.shape[0]}): each step runs {accum} equal "
                 "microbatches"
             )
-        with f32_policy():
+        with f32_policy(self.compute_dtype):
             if cfg.augment and preprocess is not None:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(step_seed(cfg.seed, state.step))
@@ -282,7 +290,7 @@ class Trainer:
         total, n = 0.0, 0
         batches = eval_loader.batches(epochs=1)
         try:
-            with torch.no_grad(), f32_policy():
+            with torch.no_grad(), f32_policy(self.compute_dtype):
                 for batch in batches:
                     image_a, image_b, flow = self._to_device(batch)
                     a, h, w = pad_to_multiple(image_a)

@@ -182,6 +182,35 @@ def test_unsupported_compute_dtype_is_refused():
     assert common.io_dtype(BF16, False) == torch.float32
 
 
+@pytest.mark.parametrize("before", [(True, True, False), (False, True, True)])
+@pytest.mark.parametrize("cd", [None, torch.float32, BF16])
+def test_f32_policy_sets_and_restores_its_flags(before, cd):
+    """``f32_policy``: no TF32 for cuDNN convs and matmuls, and on the f32
+    path cuDNN's deterministic algorithms (the JAX reference repeats
+    itself bit for bit); under the bf16 policy the caller's deterministic
+    flag stays. The caller's three flags come back on exit, also after an
+    exception."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def flags():
+        return cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
+
+    inside = (False, False, True if cd != BF16 else before[2])
+    saved = flags()
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = before
+        with common.f32_policy(cd):
+            assert flags() == inside
+        assert flags() == before
+        with pytest.raises(RuntimeError, match="inside"):
+            with common.f32_policy(cd):
+                assert flags() == inside
+                raise RuntimeError("inside")
+        assert flags() == before
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = saved
+
+
 def test_f32_policy_layer_rejects_precast_bf16_weights(rng):
     """tests/test_ops_oracle.py:706-730 for the port: an f32-policy layer
     holding bf16 weights raises, naming the layer, rather than run the

@@ -77,6 +77,10 @@ def test_port_imports_no_jax():
         "import flownet2_tf_tpu_torch.utils.png16\n"
         "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
         "import flownet2_tf_tpu_torch.tools.aot, flownet2_tf_tpu_torch.net\n"
+        "import flownet2_tf_tpu_torch.tools.bench\n"
+        "import flownet2_tf_tpu_torch.tools.benchlib\n"
+        "import flownet2_tf_tpu_torch.tools.profiler\n"
+        "import flownet2_tf_tpu_torch.tools.determinism_ab\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flownet2_tf_tpu'))\n"
         "assert not bad, bad\n"
@@ -117,6 +121,10 @@ def test_port_runs_on_the_cpu_without_triton_or_nvcc(tmp_path):
         "import flownet2_tf_tpu_torch.utils.png16\n"
         "import flownet2_tf_tpu_torch.tools.make_tfrecords\n"
         "import flownet2_tf_tpu_torch.tools.aot, flownet2_tf_tpu_torch.net\n"
+        "import flownet2_tf_tpu_torch.tools.bench\n"
+        "import flownet2_tf_tpu_torch.tools.benchlib\n"
+        "import flownet2_tf_tpu_torch.tools.profiler\n"
+        "import flownet2_tf_tpu_torch.tools.determinism_ab\n"
         "from flownet2_tf_tpu_torch.ops import correlation as tc\n"
         "from flownet2_tf_tpu_torch.ops.cuda import _build\n"
         "rng = np.random.RandomState(0)\n"
@@ -354,3 +362,154 @@ def test_cli_train_without_data_raises(tmp_path, run_dir):
             run_dir, "chairs", "--data_root", str(tmp_path / "missing")))
     with pytest.raises(ValueError, match="eval-only"):
         cli.main(_train_dataset_args(run_dir, "kitti"))
+
+
+# ---------------------------------------------------------------------------
+# The warp flags (--warp_res, --half_res_warp) and the refused knobs
+# ---------------------------------------------------------------------------
+
+def _jax_tree_npz(tmp_path_factory, name):
+    params = jax.device_get(jax.jit(jax_model(name).init)(
+        jax.random.PRNGKey(0)))
+    path = tmp_path_factory.mktemp("ckpt") / f"ck_{name}.npz"
+    np.savez(path, **jws.flatten(params))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def ckpt_cs(tmp_path_factory):
+    """FlowNetCS(PRNGKey(0)) from the JAX package as a .npz (300 MB)."""
+    path = _jax_tree_npz(tmp_path_factory, "cs")
+    yield path
+    os.remove(path)
+
+
+def _flow_close(got, want):
+    """tests/test_golden.py:96-99's full-res flow tolerance: the stack
+    amplifies at random init."""
+    scale = max(1.0, float(np.abs(want).mean()))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-3 * scale)
+
+
+def _mean_epe(a, b):
+    return float(np.sqrt(((a - b) ** 2).sum(-1)).mean())
+
+
+def test_cli_test_warp_res_matches_jax(tmp_path, ckpt_cs, capsys,
+                                       monkeypatch):
+    """``cli test --model cs --warp_res 2`` against the JAX CLI with the
+    same flag; ``--half_res_warp`` is ``--warp_res 2``; the flag moves the
+    flow."""
+    # the JAX CLI applies its flag through os.environ for the rest of the
+    # process: set it here first, so that teardown removes it
+    monkeypatch.setenv("FLOWNET2_TPU_WARP_RES", "2")
+    args = ["test", "--model", "cs", "--ckpt", ckpt_cs, "--no_image",
+            "--input_a", os.path.join(SAMPLES, "0img0.ppm"),
+            "--input_b", os.path.join(SAMPLES, "0img1.ppm")]
+    assert jcli.main([*args, "--out", str(tmp_path / "jax"),
+                      "--warp_res", "2"]) == 0
+    want = jflowlib.read_flow(tmp_path / "jax" / "0img0_flow.flo")
+    flows = {}
+    for key, flags in {"k2": ["--warp_res", "2"],
+                       "half": ["--half_res_warp"],
+                       "k1": ["--warp_res", "1"]}.items():
+        out = tmp_path / key
+        assert cli.main([*args, "--out", str(out), *flags,
+                         "--device", "cpu"]) == 0
+        flows[key] = flowlib.read_flow(out / "0img0_flow.flo")
+    capsys.readouterr()
+    _flow_close(flows["k2"], want)
+    np.testing.assert_array_equal(flows["half"], flows["k2"])
+    assert _mean_epe(flows["k1"], flows["k2"]) > 1e-2
+
+
+def test_cli_test_warp_flag_leaves_a_model_without_warps(tmp_path, ckpt_s,
+                                                         capsys):
+    args = ["test", "--model", "s", "--ckpt", ckpt_s, "--no_image",
+            "--device", "cpu",
+            "--input_a", os.path.join(SAMPLES, "0img0.ppm"),
+            "--input_b", os.path.join(SAMPLES, "0img1.ppm")]
+    assert cli.main([*args, "--out", str(tmp_path / "plain")]) == 0
+    assert cli.main([*args, "--out", str(tmp_path / "k2"),
+                     "--warp_res", "2"]) == 0
+    capsys.readouterr()
+    np.testing.assert_array_equal(
+        flowlib.read_flow(tmp_path / "k2" / "0img0_flow.flo"),
+        flowlib.read_flow(tmp_path / "plain" / "0img0_flow.flo"))
+
+
+@pytest.fixture
+def ckpt_2(tmp_path_factory):
+    """FlowNet2(PRNGKey(0)) from the JAX package as a .npz (650 MB), for
+    one test."""
+    path = _jax_tree_npz(tmp_path_factory, "2")
+    yield path
+    os.remove(path)
+
+
+def test_cli_eval_warp_res_matches_jax(ckpt_2, capsys, monkeypatch):
+    monkeypatch.setenv("FLOWNET2_TPU_WARP_RES", "2")
+    argv = ["--model", "2", "--ckpt", ckpt_2, "--dataset", "synthetic",
+            "--limit", "2", "--warp_res", "2"]
+    mine, theirs = _eval_both(capsys, argv)
+    assert mine.keys() == theirs.keys() and mine["pairs"] == 2
+    assert mine["aee"] == pytest.approx(theirs["aee"], rel=1e-3)
+    assert cli.main(["eval", *argv[:-2], "--device", "cpu"]) == 0
+    exact = _last_json(capsys)["aee"]
+    assert abs(exact - mine["aee"]) > 1e-4 * abs(exact)
+
+
+def test_cli_train_warp_res_matches_jax(tmp_path, ckpt_cs, capsys,
+                                        monkeypatch):
+    """``cli train --model cs --warp_res 2 --synthetic``, 2 steps from the
+    same weights (warm-started from one .npz, FlowNetC frozen by
+    default, no augmentation): the port logs the JAX CLI's losses."""
+    monkeypatch.setenv("FLOWNET2_TPU_WARP_RES", "2")
+    argv = ["train", "--model", "cs", "--synthetic", "--synthetic_size", "4",
+            "--synthetic_height", "64", "--synthetic_width", "64",
+            "--batch_size", "2", "--max_steps", "2", "--schedule", "short",
+            "--log_every", "1", "--no_augment", "--compute_dtype",
+            "float32", "--warm_start", f"{ckpt_cs}::", "--warp_res", "2"]
+    # each run's checkpoint (about 0.5 GB) is removed before the next run
+    try:
+        assert jcli.main([*argv, "--log_dir", str(tmp_path / "jax")]) == 0
+        theirs = _train_records(capsys)
+    finally:
+        shutil.rmtree(tmp_path / "jax", ignore_errors=True)
+    try:
+        assert cli.main([*argv, "--log_dir", str(tmp_path / "port"),
+                         "--device", "cpu"]) == 0
+        mine = _train_records(capsys)
+    finally:
+        shutil.rmtree(tmp_path / "port", ignore_errors=True)
+    theirs = [r for r in theirs if "loss" in r]
+    mine = [r for r in mine if "loss" in r]
+    assert [r["step"] for r in mine] == [r["step"] for r in theirs] == [1, 2]
+    # tests/test_torch_train.py's loss tolerance
+    np.testing.assert_allclose([r["loss"] for r in mine],
+                               [r["loss"] for r in theirs], rtol=1e-5)
+
+
+# the other arguments each command needs
+_COMMAND_ARGS = {
+    "test": ["--input_a", "a.ppm", "--input_b", "b.ppm", "--ckpt", "c.npz"],
+    "eval": ["--ckpt", "c.npz"],
+    "train": ["--synthetic"],
+    "bench": [],
+    "profile": [],
+}
+
+
+@pytest.mark.parametrize("command", sorted(_COMMAND_ARGS))
+@pytest.mark.parametrize("flag", [["--fusion_res", "2"],
+                                  ["--f32_features", "default"]])
+def test_unported_knobs_are_refused(command, flag):
+    """``--fusion_res`` and ``--f32_features`` other than their defaults
+    raise before anything runs; the defaults pass."""
+    argv = [command, "--model", "2", "--device", "cpu",
+            *_COMMAND_ARGS[command]]
+    with pytest.raises(SystemExit, match="item 18"):
+        cli.main([*argv, *flag])
+    args = cli.build_parser().parse_args(
+        [*argv, "--fusion_res", "1", "--f32_features", "highest"])
+    assert cli._refuse_unported_knobs(args) is None

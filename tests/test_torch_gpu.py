@@ -298,9 +298,10 @@ def test_f32_artifact_on_card_matches_eager(gen, tmp_path, name, warp_mode):
     forward's flow (mean EPE <= 1e-4 px) even with TF32 allowed by the
     caller, and launches the correlation forward once per served call.
 
-    Both sides run cuDNN's deterministic algorithms: its default deconv
-    algorithms sum with atomics, so two runs of one forward differ in
-    the last bits."""
+    Both sides run cuDNN's deterministic algorithms with no flag set by
+    the caller: ``f32_policy`` sets them (its default deconv algorithms
+    sum with atomics, so two runs of one forward would differ in the
+    last bits)."""
     import numpy as np
 
     from flownet2_tf_tpu_torch.models.registry import get_model
@@ -322,7 +323,6 @@ def test_f32_artifact_on_card_matches_eager(gen, tmp_path, name, warp_mode):
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.deterministic)
     try:
-        torch.backends.cudnn.deterministic = True
         want = infer.forward_flow(model, a, b, torch.float32)
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -342,3 +342,91 @@ def test_f32_artifact_on_card_matches_eager(gen, tmp_path, name, warp_mode):
         assert float(epe) <= 1e-4
     assert isinstance(host, np.ndarray)
     np.testing.assert_array_equal(host, flows[0].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Repeatable f32 entry points (ROADMAP Queue 3 F1) and the bench
+# ---------------------------------------------------------------------------
+
+def _flownet2_npz(tmp_path):
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.models.registry import get_model
+
+    tree = warmstart.random_jax_params(get_model("2").build("cpu"), seed=0)
+    ckpt = tmp_path / "flownet2.npz"
+    np.savez(ckpt, **warmstart.flatten(tree))
+    return tree, ckpt
+
+
+def test_f32_cli_test_is_repeatable_on_card(gen, tmp_path, capsys):
+    """Two f32 ``cli test --model 2`` runs on the card write bitwise-equal
+    ``.flo`` files, with no flag set by the caller; the caller's cuDNN
+    flag is as it was afterwards."""
+    import os
+
+    import numpy as np
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    _, ckpt = _flownet2_npz(tmp_path)
+    samples = os.path.join(os.path.dirname(__file__), "..", "data",
+                           "samples")
+    before = torch.backends.cudnn.deterministic
+    flows = []
+    for run in range(2):
+        out = tmp_path / f"run{run}"
+        assert cli.main(["test", "--model", "2", "--device", "cuda",
+                         "--ckpt", str(ckpt), "--no_image", "--out", str(out),
+                         "--input_a", os.path.join(samples, "0img0.ppm"),
+                         "--input_b", os.path.join(samples, "0img1.ppm")]) == 0
+        flows.append(flowlib.read_flow(out / "0img0_flow.flo"))
+    assert np.isfinite(flows[0]).all()
+    assert np.array_equal(flows[0], flows[1])
+    assert torch.backends.cudnn.deterministic == before
+
+
+@pytest.mark.parametrize("warp_mode", ["full", "half"])
+def test_f32_served_calls_are_repeatable(gen, tmp_path, warp_mode):
+    """Two served calls of one f32 FlowNet2 artifact are bitwise equal
+    without any flag set by the caller."""
+    from flownet2_tf_tpu_torch.tools import aot
+
+    tree, _ = _flownet2_npz(tmp_path)
+    path = tmp_path / "f2.flowpak"
+    aot.export_serving("2", tree, 128, 192, path, compute_dtype="float32",
+                       warp_mode=warp_mode, device="cuda")
+    sm = aot.load_serving(path)
+    a, b = (torch.rand((1, 128, 192, 3), generator=gen, device="cuda")
+            for _ in range(2))
+    first, second = sm(a, b), sm(a, b)
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
+
+
+def test_cli_bench_on_card_counts_its_launches(gen, capsys):
+    """``cli bench --model c`` at 192x256 on the card: one correlation
+    forward launch on bf16 features per forward (warm-ups, then repeats
+    x iters per attempt), CUDA-event times, the card's name."""
+    import json
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.tools import bench, benchlib
+
+    before = dict(correlation_kernel.LAUNCHES_BY_DTYPE)
+    assert cli.main(["bench", "--device", "cuda", "--model", "c",
+                     "--height", "192", "--width", "256", "--iters",
+                     "4"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    launches = {k: correlation_kernel.LAUNCHES_BY_DTYPE[k] - before[k]
+                for k in before}
+    failed = out.get("suspect", "").count("attempt ")
+    attempts = failed if failed == bench.MEASURE_ATTEMPTS else failed + 1
+    assert launches == {"float32": 0, "bfloat16": bench.WARMUP_FORWARDS
+                        + attempts * out["repeats"] * 4}
+    assert out["backend"] == "cuda" and out["warp_mode"] == "half"
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert out["ms_per_pair"] > 0
+    if out["device"] in benchlib.DEVICE_PEAKS:
+        assert out["floor_ms_analytic"] > 0 and 0 < out["mfu"] < 1

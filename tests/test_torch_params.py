@@ -1,6 +1,8 @@
 """The weight bridge between the JAX package's parameter trees and the
 torch port's modules, on the CPU."""
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -72,6 +74,30 @@ def test_deconv_layer_matches_jax(rng, act):
         got = common.nhwc(layer(common.nchw(torch.from_numpy(x)))).numpy()
     assert got.shape == want.shape == (1, 10, 14, 3)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w", [(2, 5, 3, 7, 9), (1, 2, 2, 4, 4),
+                                            (1, 16, 8, 1, 3)])
+def test_deconv_subpixel_is_the_transposed_conv(rng, n, cin, cout, h, w):
+    """The f32 path's deconv (one conv2d and an interleave) is
+    ``conv_transpose2d(stride=2, padding=1)``, its gradients included: in
+    f64 the two agree to rounding."""
+    T = functools.partial(torch.tensor, dtype=torch.float64,
+                          requires_grad=True)
+    x = T(rng.randn(n, cin, h, w))
+    k = T(rng.randn(cin, cout, 4, 4))
+    bias = T(rng.randn(cout))
+    want = torch.nn.functional.conv_transpose2d(x, k, bias, stride=2,
+                                                padding=1)
+    got = common.deconv_subpixel(x, k, bias)
+    assert got.shape == want.shape == (n, cout, 2 * h, 2 * w)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    g = torch.from_numpy(rng.randn(*want.shape))
+    for a, b in zip(torch.autograd.grad(got, (x, k, bias), g),
+                    torch.autograd.grad(want, (x, k, bias), g)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-11)
+    with pytest.raises(ValueError, match="4x4"):
+        common.deconv_subpixel(x, k[:, :, :3, :3], bias)
 
 
 def _tree(module, seed=0):
