@@ -35,9 +35,9 @@ weights:
   flows; pairs/s, host decode and device forward times;
 * phase 11, training from disk: ``cli train --model c --dataset
   flying_chairs`` on a 40-pair 384x512 raw layout (bf16, b8, the config's
-  320x448 crop), then 4 TFRecords written by ``cli make-tfrecords`` (CRC
-  timed) and 3 steps at b4 through ``--tfrecords_train``, whose images
-  cross to the card as uint8.
+  320x448 crop), then 4 TFRecords written by ``cli make-tfrecords`` (the
+  pure-Python CRC32C timed) and 3 steps at b4 through
+  ``--tfrecords_train``, whose images cross to the card as uint8.
 * phase 12, serving: FlowNet2 exported at 448x1024 b1 through ``cli
   export --aot`` on the card (f32 exact warps, f32 and bf16 half-res
   warps), a bundle of 448x1024, 384x1280 and 448x1024x8 (bf16 half), and
@@ -46,16 +46,32 @@ weights:
   the f32 artifact held against the eager forward (with TF32 allowed by
   the caller, too), the half-res artifacts against the same exports
   served on the CPU, ``cli serve`` against ``cli test``; export, load and
-  served against eager ms/pair timed. No caller sets a cuDNN flag: the
-  f32 path's ``f32_policy`` picks cuDNN's deterministic algorithms, and
-  two served calls of each f32 artifact, and two f32 ``cli test`` runs
-  (phases 2 and 12), are bitwise equal.
+  served against eager ms/pair timed. No caller sets a cuDNN flag:
+  ``f32_policy`` picks cuDNN's deterministic algorithms under both
+  policies, and two served calls of each artifact (f32 and bf16, each
+  bundle entry), and two f32 ``cli test`` runs (phases 2 and 12), are
+  bitwise equal.
 * phase 13, the measurement entry points: ``cli bench --model 2`` at
   448x1024 (f32 exact warps b1, f32 ``--warp_res 2`` b1, bf16 half-res
   b1 and b8), each gated as the bench gates itself;
   ``benchlib.train_step_ms`` for FlowNetC b8 320x448 in bf16 and f32 and
   for FlowNetCSS b8 bf16 with its default frozen scopes; ``cli profile
   --model 2`` (f32 b1, bf16 b8): device ms per layer scope.
+* phase 14, the training input path: (a) the native IO runtime built
+  with ``g++`` from the checkout, its CRC32C against ``crc32c_py`` on a
+  64 MiB buffer, ``cli make-tfrecords`` of phase 11's 40-pair layout, and
+  the native ``TFRecordFlowDataset`` bitwise against the pure one on
+  every record in both ``raw_uint8`` modes (host ms per b8 batch); (b)
+  ``cli train --model c --tfrecords_train --remat --image_summary_every
+  2`` (bf16, b8, 6 steps, threaded device prefetch, then inline): every
+  decode native, correlation forward launches 2 per step + 1 per
+  summary, backward 1 per step, 4 PNG images per summary, examples/s;
+  (c) one FlowNetC f32 and one FlowNetCSS bf16 step with remat bitwise
+  the step without, peak memory and ``train_step_ms`` both ways; (d) two
+  bf16 ``cli test`` runs and two 3-step bf16 ``cli train`` runs bitwise
+  equal, with no cuDNN flag set here. ``python3 chip_smoke.py
+  --phase14`` runs phases 0 and 14 alone on their own inputs and prints
+  no result line.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after, the bf16 paths' by the dtype of the features the kernels took.
@@ -308,6 +324,7 @@ def phase1_kernel_vs_plain():
         (kitti, 20, 2, bf16, True),
         (conv3, 20, 2, f32, True),
         (conv3, 20, 2, bf16, True),
+        ((8, *fnet2[1:]), 20, 2, bf16, True),  # FlowNet2 bf16 b8 serving
         # off the TPU tiling (W % 8, C % 128)
         ((2, 8, 12, 64), 4, 1, f32, False),
         ((2, 8, 12, 64), 4, 2, f32, False),
@@ -1102,20 +1119,15 @@ def _recording_image_feed():
         loop._images_to_float = real
 
 
-def phase11_train_from_disk(tmp):
-    """``cli train --model c --dataset flying_chairs`` on the card from a
-    raw layout written from the seed (bf16, b8, the config's crop), then
-    from TFRecords written by ``cli make-tfrecords`` (b4, uint8 images):
-    one forward and one backward launch per step, finite losses."""
+def _write_chairs(tmp):
+    """A FlyingChairs raw layout of CHAIRS_PAIRS pairs written from the
+    seed under ``tmp``, and a copy of its first 4 pairs; returns both
+    directories."""
     import numpy as np
 
-    from flownet2_tf_tpu_torch import cli
-    from flownet2_tf_tpu_torch.data import tfrecord
-    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
     from flownet2_tf_tpu_torch.utils import flowlib
     from flownet2_tf_tpu_torch.utils.image_io import write_image
 
-    t0 = time.perf_counter()
     rng = np.random.RandomState(SEED + 11)
     chairs = os.path.join(tmp, "chairs")
     first4 = os.path.join(tmp, "chairs4")
@@ -1128,6 +1140,21 @@ def phase11_train_from_disk(tmp):
             write_image(a, stem + "_img1.ppm")
             write_image(b, stem + "_img2.ppm")
             flowlib.write_flow(flow, stem + "_flow.flo")
+    return chairs, first4
+
+
+def phase11_train_from_disk(tmp):
+    """``cli train --model c --dataset flying_chairs`` on the card from a
+    raw layout written from the seed (bf16, b8, the config's crop), then
+    from TFRecords written by ``cli make-tfrecords`` (b4, uint8 images):
+    one forward and one backward launch per step, finite losses. Returns
+    the layout's directory and the pure-Python CRC32C's MB/s."""
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.data import tfrecord
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+
+    t0 = time.perf_counter()
+    chairs, first4 = _write_chairs(tmp)
     log(f"phase 11: wrote {CHAIRS_PAIRS} FlyingChairs pairs at "
         f"{CHAIRS_HW[0]}x{CHAIRS_HW[1]} in {time.perf_counter() - t0:.1f} s")
 
@@ -1148,14 +1175,14 @@ def phase11_train_from_disk(tmp):
             made = time.perf_counter() - t1
             payload = next(tfrecord.read_records(extra[1], verify_crc=False))
             t1 = time.perf_counter()
-            tfrecord.crc32c(payload)
+            tfrecord.crc32c_py(payload)
             crc_s = time.perf_counter() - t1
+            crc_py_mb_s = len(payload) / 1e6 / crc_s
             size = os.path.getsize(extra[1])
             log(f"phase 11: cli make-tfrecords: {buf.getvalue().strip()}, "
-                f"{size / 1e6:.2f} MB in {made:.2f} s; the pure-Python CRC32C "
-                f"of one {len(payload) / 1e6:.2f} MB record took "
-                f"{crc_s:.2f} s ({len(payload) / 1e6 / crc_s:.2f} MB/s, each "
-                f"record's CRC taken once)")
+                f"{size / 1e6:.2f} MB in {made:.2f} s (native CRC32C); the "
+                f"pure-Python CRC32C of one {len(payload) / 1e6:.2f} MB "
+                f"record took {crc_s:.2f} s ({crc_py_mb_s:.2f} MB/s)")
             if rc != 0 or json.loads(buf.getvalue())["train"] != 4:
                 raise AssertionError("cli make-tfrecords failed")
         correlation_kernel.reset_launch_counts()
@@ -1184,6 +1211,7 @@ def phase11_train_from_disk(tmp):
     log(f"phase 11: wall time {wall:.1f} s (budget {PHASE11_BUDGET_S} s)")
     if wall > PHASE11_BUDGET_S:
         raise AssertionError("phase 11 overran its time budget")
+    return chairs, crc_py_mb_s
 
 
 def _cli_export(argv):
@@ -1257,8 +1285,8 @@ def serve_worker(spec_path):
                 calls += 1
             np.save(task["flow_out"], flow.cpu().numpy())
             if device.type == "cuda":
-                # a second call: bitwise the first on the f32 path
-                # (cuDNN's deterministic algorithms); bf16's spread
+                # a second call: bitwise the first under both policies
+                # (cuDNN's deterministic algorithms)
                 again = sm(a, b)
                 res["same"] = bool(torch.equal(again, flow))
                 res["spread_px"] = float(
@@ -1271,10 +1299,11 @@ def serve_worker(spec_path):
                 a, b = (torch.rand((*bhw, 3), generator=gen, device=device)
                         for _ in range(2))
                 flow = sm(a, b)
-                calls += 1
+                calls += 2
                 res["shapes"].append({
                     "shape": list(flow.shape),
-                    "finite": bool(torch.isfinite(flow).all())})
+                    "finite": bool(torch.isfinite(flow).all()),
+                    "same": bool(torch.equal(sm(a, b), flow))})
                 if bhw == task["time_shape"] and device.type == "cuda":
                     res.update(timed(lambda: sm(a, b), bhw[0]))
                     calls += 13
@@ -1433,9 +1462,8 @@ def phase12_serving(tmp, tree, ckpt, phase2_flo):
             f"correlation launch each on {dtype} features; two served "
             f"calls bitwise equal: {results[0]['same']} (mean EPE "
             f"{results[0]['spread_px']:.3e} px apart)")
-        if dtype == "float32" and not results[0]["same"]:
-            raise AssertionError(f"phase 12 {key}: two f32 served calls "
-                                 "differ")
+        if not results[0]["same"]:
+            raise AssertionError(f"phase 12 {key}: two served calls differ")
     results, calls, wall = _finish_worker(_start_worker(tmp, "bundle", [{
         "kind": "bundle", "artifact": paths["bundle"],
         "shapes": [[1, 448, 1024], [1, 384, 1280], [8, 448, 1024]],
@@ -1446,7 +1474,7 @@ def phase12_serving(tmp, tree, ckpt, phase2_flo):
         f"{bundle['load_s']:.2f} s, {calls} calls; entries "
         f"{bundle['shapes']}; infer_pair at {SINTEL_HW} -> "
         f"{bundle['pair_flow']}")
-    if (not all(x["finite"] for x in bundle["shapes"])
+    if (not all(x["finite"] and x["same"] for x in bundle["shapes"])
             or [x["shape"] for x in bundle["shapes"]]
             != [[1, 448, 1024, 2], [1, 384, 1280, 2], [8, 448, 1024, 2]]
             or bundle["pair_flow"] != [*SINTEL_HW, 2]):
@@ -1666,9 +1694,330 @@ def phase13_measurement(tmp, earlier):
     return results
 
 
-def main():
+# phase 14: the training input path's wall-time budget (s), its cli train
+# run (steps, image summary period), the repeat runs' steps and the CRC
+# buffer (MiB)
+PHASE14_BUDGET_S = 150.0
+P14_STEPS, P14_SUMMARY_EVERY, P14_REPEAT_STEPS = 6, 2, 3
+CRC_BUFFER_MIB = 64
+SUMMARY_TAGS = ("input_a", "input_b", "pred_flow", "gt_flow")
+
+
+def _png_hw(png):
+    """(height, width) of an 8-bit RGB PNG, after checking its signature
+    and chunk CRCs and decompressing its rows."""
+    import zlib
+
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(png):
+        n = int.from_bytes(png[pos:pos + 4], "big")
+        tag, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if int.from_bytes(png[pos + 8 + n:pos + 12 + n], "big") != (
+                zlib.crc32(tag + data) & 0xFFFFFFFF):
+            raise AssertionError(f"PNG chunk {tag} fails its CRC")
+        chunks[tag] = chunks.get(tag, b"") + data
+        pos += 12 + n
+    w, h = (int.from_bytes(chunks[b"IHDR"][i:i + 4], "big") for i in (0, 4))
+    if len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise AssertionError("PNG rows do not fill the image")
+    return h, w
+
+
+def _event_images(log_dir):
+    """[(step, tag, png)] of every image in the run's TensorBoard events
+    (records read with their CRCs checked)."""
+    from flownet2_tf_tpu_torch.data import tfrecord
+
+    files = [f for f in os.listdir(log_dir) if "tfevents" in f]
+    if len(files) != 1:
+        raise AssertionError(f"{log_dir}: events files {files}")
+
+    def fields(buf):
+        return [(f, v) for f, v, _ in tfrecord._iter_fields(buf)]
+
+    out = []
+    for rec in tfrecord.read_records(os.path.join(log_dir, files[0])):
+        event = dict(fields(rec))
+        for field, value in fields(event.get(5, b"")):
+            val = dict(fields(value))
+            if field == 1 and 4 in val:
+                out.append((event[2], val[1].decode(),
+                            dict(fields(val[4]))[4]))
+    return out
+
+
+@contextlib.contextmanager
+def _prefetch_mode(mode):
+    """Run the trainers built inside with ``device_prefetch=mode``."""
+    from flownet2_tf_tpu_torch.training import loop
+
+    real = loop._use_threaded_prefetch
+    loop._use_threaded_prefetch = lambda _: real(mode)
+    try:
+        yield
+    finally:
+        loop._use_threaded_prefetch = real
+
+
+@contextlib.contextmanager
+def _recording_decodes():
+    """Record, for every batch a TFRecordFlowDataset decodes, whether it
+    went through the native runtime."""
+    from flownet2_tf_tpu_torch.data import loader
+
+    seen, real = [], loader.TFRecordFlowDataset.fetch_batch
+
+    def spy(self, idxs, num_workers=4):
+        seen.append(self.native)
+        return real(self, idxs, num_workers)
+
+    loader.TFRecordFlowDataset.fetch_batch = spy
+    try:
+        yield seen
+    finally:
+        loader.TFRecordFlowDataset.fetch_batch = real
+
+
+def _peak_step(trainer, batch):
+    """One ``train_step`` from the trainer's seeded init on ``batch``:
+    (loss, updated parameters, peak allocated bytes above the state over
+    the forward and backward, and over the whole step). The first ends
+    where the optimizer update starts: its moments and temporaries are
+    parameter-sized, whatever remat does."""
     import torch
 
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    peaks, update = [], state.optimizer.step
+
+    def step(*args, **kwargs):
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        return update(*args, **kwargs)
+
+    state.optimizer.step = step
+    loss = trainer.train_step(state, batch)["loss"]
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated() - base)
+    return (loss, [p.detach().clone() for p in state.model.parameters()],
+            *peaks)
+
+
+def phase14_input_path(tmp, chairs, ckpt, crc_py_mb_s=None):
+    """The training input path on the card's host and the rest of the
+    trainer (see the module docstring): (a) the native IO runtime, (b)
+    ``cli train --remat --image_summary_every`` from its TFRecords, (c)
+    remat against no remat, (d) bf16 run-to-run repeatability."""
+    import numpy as np
+    import torch
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.data import loader, tfrecord
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.runtime import native
+    from flownet2_tf_tpu_torch.tools import benchlib
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+    from flownet2_tf_tpu_torch.training.warmstart import PARAMS_FILE
+
+    t0 = time.perf_counter()
+    # (a) the native runtime, built here from the checkout
+    if not native.build_library() or native.get_native_io() is None:
+        raise AssertionError("phase 14: the native IO runtime did not build")
+    lib = native.get_native_io()
+    log(f"phase 14: g++ built {os.path.relpath(native._LIB_PATH, ROOT)} in "
+        f"{native.last_build_s:.2f} s")
+    buf = np.random.RandomState(SEED + 14).bytes(CRC_BUFFER_MIB << 20)
+    t1 = time.perf_counter()
+    crc = lib.crc32c(buf)
+    native_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    crc_py = tfrecord.crc32c_py(buf)
+    py_s = time.perf_counter() - t1
+    mb = len(buf) / 1e6
+    log(f"phase 14: CRC32C of {mb:.1f} MB: native {mb / native_s:.1f} MB/s "
+        f"({native_s * 1e3:.2f} ms), crc32c_py {mb / py_s:.2f} MB/s "
+        f"({py_s:.2f} s); equal: {crc == crc_py}")
+    if crc != crc_py:
+        raise AssertionError("phase 14: native and pure CRC32C differ")
+
+    records = os.path.join(tmp, "p14_train.tfrecords")
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["make-tfrecords", "--data_root", chairs, "--out",
+                       records])
+    made = time.perf_counter() - t1
+    n_rec = json.loads(out.getvalue())["train"] if rc == 0 else 0
+    size = os.path.getsize(records) / 1e6
+    beside = (f"; at phase 11's pure-Python rate the CRCs alone would take "
+              f"{size / crc_py_mb_s:.1f} s" if crc_py_mb_s else "")
+    log(f"phase 14: cli make-tfrecords of the {CHAIRS_PAIRS}-pair layout: "
+        f"{n_rec} records, {size:.1f} MB in {made:.2f} s (native "
+        f"CRC32C){beside}")
+    if n_rec < 16:
+        raise AssertionError(f"phase 14: make-tfrecords wrote {n_rec}")
+    h, w = CHAIRS_HW
+    for raw in (False, True):
+        fast = loader.TFRecordFlowDataset(records, h, w, raw_uint8=raw)
+        pure = loader.TFRecordFlowDataset(records, h, w, use_native=False,
+                                          raw_uint8=raw)
+        if not fast.native or len(fast) != n_rec or len(pure) != n_rec:
+            raise AssertionError(f"phase 14: native {fast.native}, records "
+                                 f"{len(fast)} and {len(pure)}")
+        ms = {"native": [], "pure": []}
+        for start in range(0, n_rec, 8):
+            idxs = list(range(start, min(start + 8, n_rec)))
+            got = {}
+            for name, ds in (("native", fast), ("pure", pure)):
+                t1 = time.perf_counter()
+                got[name] = ds.fetch_batch(idxs)
+                if len(idxs) == 8:
+                    ms[name].append((time.perf_counter() - t1) * 1e3)
+            for k, v in got["native"].items():
+                if (v.dtype != got["pure"][k].dtype
+                        or v.tobytes() != got["pure"][k].tobytes()):
+                    raise AssertionError(f"phase 14: native {k} of records "
+                                         f"{idxs} (raw_uint8={raw}) differs")
+        log(f"phase 14: TFRecordFlowDataset raw_uint8={raw}: all {n_rec} "
+            f"records bitwise equal native/pure; host ms per b8 batch: "
+            f"native {statistics.median(ms['native']):.2f}, pure "
+            f"{statistics.median(ms['pure']):.2f}")
+
+    # (b) the slice's path: FlowNetC bf16 from the TFRecords, remat, image
+    # summaries, threaded prefetch ('auto'), then the same run inline
+    # the flying_chairs config's frame and crop, spelled out
+    train = ["--model", "c", "--dataset", "flying_chairs", "--tfrecords_train",
+             records, "--image_height", str(h), "--image_width", str(w),
+             "--crop_height", str(TRAIN_H), "--crop_width", str(TRAIN_W),
+             "--batch_size", str(TRAIN_BATCH), "--device", "cuda",
+             "--schedule", "short", "--log_every", "1", "--checkpoint_every",
+             "0"]
+    summaries = P14_STEPS // P14_SUMMARY_EVERY
+    rates = {}
+    for mode in ("auto", "inline"):
+        log_dir = os.path.join(tmp, f"p14_{mode}")
+        correlation_kernel.reset_launch_counts()
+        t1 = time.perf_counter()
+        with _prefetch_mode(mode), _recording_decodes() as decodes:
+            recs = _train([*train, "--remat", "--image_summary_every",
+                           str(P14_SUMMARY_EVERY), "--max_steps",
+                           str(P14_STEPS), "--log_dir", log_dir])
+        wall = time.perf_counter() - t1
+        counts = path_counts()
+        _check_counts(counts, 2 * P14_STEPS + summaries, P14_STEPS,
+                      "bfloat16", f"phase 14 cli train --remat ({mode})")
+        if not decodes or not all(decodes):
+            raise AssertionError(f"phase 14: decodes took the native path: "
+                                 f"{decodes}")
+        if [r["step"] for r in recs] != list(range(1, P14_STEPS + 1)) or \
+                not all(math.isfinite(r["loss"]) for r in recs):
+            raise AssertionError(f"phase 14: logged {recs}")
+        images = _event_images(log_dir)
+        want = [(s, t) for s in range(P14_SUMMARY_EVERY, P14_STEPS + 1,
+                                      P14_SUMMARY_EVERY)
+                for t in SUMMARY_TAGS]
+        if [(s, t) for s, t, _ in images] != want or any(
+                _png_hw(png) != (TRAIN_H, TRAIN_W) for _, _, png in images):
+            raise AssertionError(f"phase 14: images {[i[:2] for i in images]}")
+        rates[mode] = [round(r["examples_per_sec"], 1) for r in recs]
+        log(f"phase 14: cli train --model c --tfrecords_train (native, "
+            f"{len(decodes)} b{TRAIN_BATCH} decodes) --remat "
+            f"--image_summary_every {P14_SUMMARY_EVERY}, bf16, device_prefetch "
+            f"{mode!r}: {P14_STEPS} steps in {wall:.1f} s, correlation "
+            f"launches {counts}; {len(images)} PNG images; examples/s "
+            f"{rates[mode]}")
+    log(f"phase 14: examples/s over steps 3-{P14_STEPS} (summaries at even "
+        f"steps): threaded {statistics.median(rates['auto'][2:]):.1f}, "
+        f"inline {statistics.median(rates['inline'][2:]):.1f} (a record, "
+        "not a claim)")
+
+    # (c) remat against no remat: one step from the same seed and batch
+    ds = loader.SyntheticFlowDataset(size=TRAIN_BATCH, height=TRAIN_H,
+                                     width=TRAIN_W, seed=SEED)
+    batch = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(
+        TRAIN_BATCH)])).cuda() for k in ("image_a", "image_b", "flow")}
+    for model, dtype in (("c", "float32"), ("css", "bfloat16")):
+        out = {}
+        for remat in (False, True):
+            correlation_kernel.reset_launch_counts()
+            out[remat] = _peak_step(Trainer(TrainConfig(
+                model=model, schedule="short", log_dir=tmp, device="cuda",
+                compute_dtype=dtype, remat=remat, augment=False,
+                tensorboard=False, checkpoint_every=0)), batch)
+            fwd = 2 if remat and model == "c" else 1
+            _check_counts(path_counts(), fwd, int(model == "c"), dtype,
+                          f"phase 14 {model} step remat={remat}")
+        same = torch.equal(out[True][0], out[False][0]) and all(
+            torch.equal(a, b) for a, b in zip(out[True][1], out[False][1]))
+        steps = {}
+        for remat in (False, True):
+            correlation_kernel.reset_launch_counts()
+            steps[remat] = benchlib.train_step_ms(
+                model, TRAIN_BATCH, TRAIN_H, TRAIN_W, dtype, iters=STEP_ITERS,
+                remat=remat, device="cuda")[0]
+            n = 2 * (2 + STEP_ITERS)
+            _check_counts(path_counts(), n * (2 if remat and model == "c"
+                                              else 1),
+                          n if model == "c" else 0, dtype,
+                          f"phase 14 train_step_ms {model} remat={remat}")
+        gib = {k: [x / 2**30 for x in v[2:]] for k, v in out.items()}
+        log(f"phase 14: {model} {dtype} b{TRAIN_BATCH} {TRAIN_H}x{TRAIN_W} "
+            f"step with remat: loss and every updated parameter bitwise the "
+            f"step without: {same}; peak allocated over forward + backward "
+            f"{gib[True][0]:.3f} GiB against {gib[False][0]:.3f} GiB "
+            f"({100.0 * (gib[True][0] / gib[False][0] - 1):+.1f}%), over the "
+            f"step {gib[True][1]:.3f} against {gib[False][1]:.3f} GiB; "
+            f"train_step_ms {steps[True]:.3f} ms against {steps[False]:.3f} "
+            f"ms ({100.0 * (steps[True] / steps[False] - 1):+.1f}%)")
+        if not same:
+            raise AssertionError(f"phase 14: the {model} {dtype} remat step "
+                                 "differs from the step")
+        if not out[True][2] < out[False][2]:  # forward + backward
+            raise AssertionError(f"phase 14: remat did not lower the {model} "
+                                 "step's peak memory")
+
+    # (d) bf16 repeatability, with no cuDNN flag set here
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("phase 14: cudnn.deterministic was set by a "
+                             "caller")
+    flows = [_cli_test(ckpt, os.path.join(tmp, f"p14_test{i}"), "bfloat16")
+             for i in range(2)]
+    for flow, counts in flows:
+        _check_counts(counts, 1, 0, "bfloat16", "phase 14 cli test bf16")
+    same_test = np.array_equal(flows[0][0], flows[1][0])
+    params = []
+    for i in range(2):
+        log_dir = os.path.join(tmp, f"p14_repeat{i}")
+        correlation_kernel.reset_launch_counts()
+        _train([*train, "--max_steps", str(P14_REPEAT_STEPS), "--log_dir",
+                log_dir])
+        _check_counts(path_counts(), P14_REPEAT_STEPS, P14_REPEAT_STEPS,
+                      "bfloat16", "phase 14 repeat run")
+        with np.load(os.path.join(log_dir, "checkpoints",
+                                  str(P14_REPEAT_STEPS), PARAMS_FILE)) as z:
+            params.append({k: z[k] for k in z.files})
+    same_train = params[0].keys() == params[1].keys() and all(
+        np.array_equal(v, params[1][k]) for k, v in params[0].items())
+    log(f"phase 14: bf16 cli test twice: .flo bitwise equal: {same_test}; "
+        f"bf16 cli train --model c twice ({P14_REPEAT_STEPS} steps from the "
+        f"TFRecords, augmented, threaded prefetch): checkpoints bitwise "
+        f"equal: {same_train}; cudnn.deterministic outside the calls: "
+        f"{torch.backends.cudnn.deterministic}")
+    if not (same_test and same_train) or torch.backends.cudnn.deterministic:
+        raise AssertionError("phase 14: bf16 runs are not repeatable")
+    wall = time.perf_counter() - t0
+    log(f"phase 14: wall time {wall:.1f} s (budget {PHASE14_BUDGET_S} s)")
+    if wall > PHASE14_BUDGET_S:
+        raise AssertionError("phase 14 overran its time budget")
+
+
+def main(argv=None):
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not os.path.isdir(os.path.join(ROOT, "flownet2_tf_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
                          "repository (flownet2_tf_tpu_torch/ not found)")
@@ -1677,6 +2026,22 @@ def main():
                          "(torch.cuda.is_available() is False)")
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
+    if argv == ["--phase14"]:
+        # phases 0 and 14 alone, on their own inputs: a quick check of the
+        # training input path; prints no result line
+        from flownet2_tf_tpu_torch.models.registry import get_model
+
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "flownet2_seed0.npz")
+            _jax_layout_npz(get_model("2").build("cpu"), ckpt)
+            phase14_input_path(tmp, _write_chairs(tmp)[0], ckpt)
+        log(f"chip_smoke.py --phase14: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
+                         "or --phase14)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -1700,10 +2065,11 @@ def main():
         earlier["phase 9 C bf16 step"] = train_step_numbers(
             9, "bfloat16", bwd_timings["bfloat16"]["ms"])
         phase10_eval(tmp, ckpt)
-        with tempfile.TemporaryDirectory() as train_tmp:
-            phase11_train_from_disk(train_tmp)
-        phase12_serving(tmp, tree, ckpt, flow_cuda)
-        phase13_measurement(tmp, earlier)
+        with tempfile.TemporaryDirectory() as disk_tmp:
+            chairs, crc_py_mb_s = phase11_train_from_disk(disk_tmp)
+            phase12_serving(tmp, tree, ckpt, flow_cuda)
+            phase13_measurement(tmp, earlier)
+            phase14_input_path(disk_tmp, chairs, ckpt, crc_py_mb_s)
 
     log(f"chip_smoke.py: every phase passed in "
         f"{time.perf_counter() - t0:.1f} s")

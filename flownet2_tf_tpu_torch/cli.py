@@ -9,9 +9,9 @@ Port of nine subcommands of ``flownet2_tf_tpu/cli.py``:
   (``--tfrecords_train``/``--tfrecords_val``, fed as uint8 images), or on
   the procedural ``--synthetic`` dataset, with the JAX flags this port
   supports (schedule, checkpoints and resume, warm starts,
-  ``--grad_accum``, ``--eval_every``, ``--transfer_flow_dtype``); one
-  JSON line per logged step. ``--remat``, image summaries and data
-  parallelism are not ported yet.
+  ``--grad_accum``, ``--eval_every``, ``--transfer_flow_dtype``,
+  ``--remat``, ``--image_summary_every``); one JSON line per logged step.
+  Data parallelism is not ported yet.
 * ``test``: single-pair inference, f32 by default or
   ``--compute_dtype bfloat16`` -> ``.flo`` / flow PNG, and the same JSON
   line on stdout.
@@ -88,6 +88,8 @@ def cmd_train(args):
         max_steps=args.max_steps,
         log_every=args.log_every,
         checkpoint_every=args.checkpoint_every,
+        image_summary_every=args.image_summary_every,
+        remat=args.remat,
         grad_accum=args.grad_accum,
         eval_every=args.eval_every,
         transfer_flow_dtype=args.transfer_flow_dtype,
@@ -511,8 +513,13 @@ def build_parser():
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--log_every", type=int, default=100)
     p.add_argument("--checkpoint_every", type=int, default=2500)
+    p.add_argument("--image_summary_every", type=int, default=0,
+                   help="write TensorBoard image summaries every N steps")
     p.add_argument("--eval_every", type=int, default=0,
                    help="evaluate validation EPE every N steps")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize the forward pass (activation-memory "
+                        "savings for stacked models at large crops)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="run each step as N equal microbatches, averaging "
                         "gradients (batch size must divide by N)")

@@ -5,12 +5,14 @@ imported, because importing the JAX package pulls in JAX:
 
 * ``SyntheticFlowDataset`` (with ``_bilinear_upsample`` and
   ``_backward_resample``): images and flows byte-identical to the JAX
-  package's for the same seed and index (its default motion regime);
+  package's for the same seed and index, in every ``motion`` regime,
+  with ``uint8_images`` and with ``cache``;
 * the readers of the datasets' published layouts: FlyingChairs (with its
   1-in-36 ``validate`` holdout), FlyingThings3D (full and subset
   layouts), ChairsSDHom, MPI-Sintel and KITTI (``colored_0`` and
   ``image_2``), and reference-layout TFRecords (``TFRecordFlowDataset``,
-  pure Python: the JAX package's native IO runtime is not ported);
+  through the native IO runtime, ``runtime/native.py``, when it builds,
+  else pure Python);
 * ``BatchLoader`` and ``_parallel_fetch`` (the same batch order and
   ``start_batch`` resume), and ``load_batch``, which builds a loader from
   a dataset config (``data/dataset_configs.py``).
@@ -45,21 +47,52 @@ class SyntheticFlowDataset:
     Each example: a smooth random texture A; flow = per-example random
     affine field; B = A backward-warped by the flow (so that
     flow_warp(B, flow) ~= A). Deterministic per (seed, index); no dataset
-    download needed.
+    download needed. Byte-identical to the JAX package's for every
+    ``motion`` regime, ``uint8_images`` and ``cache``.
     """
 
     def __init__(self, size=1024, height=64, width=64, seed=0,
-                 max_flow=5.0):
+                 max_flow=5.0, cache=False, uint8_images=False,
+                 motion="default"):
         self.size = int(size)
         self.height = int(height)
         self.width = int(width)
         self.seed = int(seed)
         self.max_flow = float(max_flow)
+        # motion regime:
+        #   'default'  — translation ~ U(-max_flow, max_flow) (legacy;
+        #                tests/goldens pin this distribution)
+        #   'large'    — |translation| in [10, 40] px: the regime the
+        #                CSS branch (correlation, +-160 px at full res)
+        #                exists for and FlowNetSD's all-3x3 receptive
+        #                field cannot reach
+        #   'subpixel' — |translation| <= 0.9 px, tiny rotation/zoom:
+        #                the small-displacement regime FlowNetSD was
+        #                added for (FlowNet2 paper §4)
+        #   'mixed'    — even indices large, odd indices subpixel
+        if motion not in ("default", "large", "subpixel", "mixed"):
+            raise ValueError(f"unknown motion regime {motion!r}")
+        self.motion = motion
+        # uint8_images: quantize rendered images to 8-bit, as real
+        # datasets are (Chairs/Sintel PPM/PNG); the trainer converts them
+        # on the device (training/loop.py::_images_to_float), and they
+        # are a quarter of the image bytes to the device (flow stays f32)
+        self.uint8_images = bool(uint8_images)
+        # cache=True memoizes rendered scenes (a numpy render costs tens
+        # of ms per example), for loops that re-visit indices; ~2.6 MB
+        # per 256x320 scene
+        self._cache = {} if cache else None
 
     def __len__(self):
         return self.size
 
     def __getitem__(self, idx):
+        if self._cache is not None:
+            item = self._cache.get(idx)
+            if item is None:
+                item = self._render(idx)
+                self._cache[idx] = item
+            return item
         return self._render(idx)
 
     def _render(self, idx):
@@ -69,12 +102,27 @@ class SyntheticFlowDataset:
         small = rng.rand(h // 8 + 2, w // 8 + 2, 3).astype(np.float32)
         img_a = _bilinear_upsample(small, h, w)
 
-        # affine flow field: f(p) = M p + t, small coefficients (the JAX
-        # package's 'default' motion regime; its 'large', 'subpixel' and
-        # 'mixed' regimes are not ported)
-        ang = rng.uniform(-0.05, 0.05)
-        scale = rng.uniform(-0.03, 0.03)
-        tx, ty = rng.uniform(-self.max_flow, self.max_flow, 2)
+        # affine flow field: f(p) = M p + t, small coefficients
+        regime = self.motion
+        if regime == "mixed":
+            regime = "large" if idx % 2 == 0 else "subpixel"
+        if regime == "large":
+            # large translation, but keep the rotation/zoom coefficients
+            # small: _backward_resample inverts the field with one
+            # fixed-point step, which is exact for pure translation and
+            # O(coef^2 * |p|) for the linear part — the GT stays honest
+            ang = rng.uniform(-0.02, 0.02)
+            scale = rng.uniform(-0.02, 0.02)
+            mag = rng.uniform(10.0, 40.0, 2)
+            tx, ty = mag * rng.choice([-1.0, 1.0], 2)
+        elif regime == "subpixel":
+            ang = rng.uniform(-0.002, 0.002)
+            scale = rng.uniform(-0.002, 0.002)
+            tx, ty = rng.uniform(-0.9, 0.9, 2)
+        else:
+            ang = rng.uniform(-0.05, 0.05)
+            scale = rng.uniform(-0.03, 0.03)
+            tx, ty = rng.uniform(-self.max_flow, self.max_flow, 2)
         ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
         cx, cy = (w - 1) / 2, (h - 1) / 2
         u = (np.cos(ang) * (1 + scale) - 1) * (xs - cx) - np.sin(ang) * (
@@ -86,10 +134,36 @@ class SyntheticFlowDataset:
         flow = np.stack([u, v], axis=-1).astype(np.float32)
 
         # B such that warping B backward by flow reproduces A:
-        # B(p + f(p)) = A(p)  =>  B(q) = A(finv(q)), with the first-order
-        # inverse (exact for pure translation; the residual is negligible
-        # for these small fields)
-        img_b = _backward_resample(img_a, -flow)
+        # B(p + f(p)) = A(p)  =>  B(q) = A(finv(q)).
+        if regime in ("large", "subpixel"):
+            # the field is affine — invert it EXACTLY:
+            # q = c + L (p - c) + t  =>  p = c + L^-1 (q - c - t).
+            # The 'default' path below keeps its first-order inverse
+            # (the JAX package's frozen-seed tests pin that rendering);
+            # at 40 px translations the first-order error reaches ~0.9 px
+            # of sampling offset, label noise on the GT.
+            ca, sa = np.cos(ang), np.sin(ang)
+            L = np.array([[ca * (1 + scale), -sa],
+                          [sa, ca * (1 + scale)]], np.float64)
+            li = np.linalg.inv(L)
+            dqx = xs - cx - tx
+            dqy = ys - cy - ty
+            px = cx + li[0, 0] * dqx + li[0, 1] * dqy
+            py = cy + li[1, 0] * dqx + li[1, 1] * dqy
+            inv_disp = np.stack([px - xs, py - ys], axis=-1).astype(
+                np.float32)
+            img_b = _backward_resample(img_a, inv_disp)
+        else:
+            # first-order inverse (exact for pure translation): for the
+            # small default fields the residual is negligible
+            img_b = _backward_resample(img_a, -flow)
+        if self.uint8_images:
+            img_a = (np.clip(img_a, 0.0, 1.0) * 255.0 + 0.5).astype(
+                np.uint8
+            )
+            img_b = (np.clip(img_b, 0.0, 1.0) * 255.0 + 0.5).astype(
+                np.uint8
+            )
         return {"image_a": img_a, "image_b": img_b, "flow": flow}
 
 
@@ -180,22 +254,56 @@ class TFRecordFlowDataset:
     """Reference-layout TFRecords: Example{image_a, image_b, flow} raw
     bytes, uint8 images and float32 flow at the config's H x W.
 
-    Records are found by an offset index built on first use; reading
-    does not check the CRCs (``tfrecord.read_records`` does).
-    ``raw_uint8`` keeps the images uint8 on the host: a quarter of the
-    bytes to the device, where the trainer converts them.
+    With the native IO runtime (``runtime/native.py``; ``use_native``,
+    the default, and a library that builds), the record index comes from
+    its C++ scan and whole batches decode over its threads
+    (``fetch_batch``), each payload's CRC checked; otherwise records are
+    found by a Python offset index and parsed by ``data/tfrecord.py``,
+    without the CRC check. Both give the same bytes. ``raw_uint8`` keeps
+    the images uint8 on the host: a quarter of the bytes to the device,
+    where the trainer converts them.
     """
 
-    def __init__(self, path, height, width, raw_uint8: bool = False):
+    def __init__(self, path, height, width, use_native: bool = True,
+                 raw_uint8: bool = False):
         self.path = os.fspath(path)
         self.height = int(height)
         self.width = int(width)
         self.raw_uint8 = bool(raw_uint8)
         self._offsets = None
+        self._native = None
+        self._native_handle = None
+        if use_native:
+            from flownet2_tf_tpu_torch.runtime.native import get_native_io
+
+            self._native = get_native_io()
+            if self._native is not None:
+                try:
+                    self._native_handle = self._native.tfrecord_open(
+                        self.path)
+                except ValueError:
+                    self._native = None
+
+    @property
+    def native(self) -> bool:
+        """Whether batches decode through the native runtime."""
+        return self._native_handle is not None
 
     def fetch_batch(self, idxs, num_workers: int = 4):
+        if self._native_handle is not None:
+            return self._native.decode_batch(
+                self._native_handle, list(idxs), self.height, self.width,
+                n_threads=num_workers, raw_uint8=self.raw_uint8,
+            )
         items = [self[int(i)] for i in idxs]
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def __del__(self):
+        if getattr(self, "_native_handle", None) is not None:
+            try:
+                self._native.tfrecord_close(self._native_handle)
+            except Exception:
+                pass
 
     def _index(self):
         if self._offsets is None:
@@ -214,6 +322,9 @@ class TFRecordFlowDataset:
         return self._offsets
 
     def __len__(self):
+        if self._native_handle is not None:
+            # the native open already indexed every record
+            return int(self._native.tfrecord_count(self._native_handle))
         return len(self._index())
 
     def __getitem__(self, idx):

@@ -11,9 +11,10 @@ pulls in JAX), for the reference layout: raw-bytes features ``image_a``,
   Features -> map<string, Feature> -> BytesList/FloatList/Int64List
   message shape. No protoc codegen needed for this fixed schema.
 
-The port has no native IO runtime, so :func:`crc32c` is the pure-Python
-loop (a few MB/s): writing records pays it, reading through
-``data/loader.py::TFRecordFlowDataset`` does not check it.
+:func:`crc32c` runs the native IO runtime's SSE4.2 CRC32C
+(``runtime/native.py``) when the library builds, else the pure-Python
+loop :func:`crc32c_py` (a few MB/s), which stays the oracle the tests
+hold the native one against.
 """
 
 from __future__ import annotations
@@ -45,14 +46,26 @@ def _crc_table():
     return _CRC_TABLE
 
 
-def crc32c(data: bytes) -> int:
-    """Pure-Python CRC32C (Castagnoli), the JAX package's ``crc32c_py``. A
-    Python byte loop: a few MB/s."""
+def crc32c_py(data: bytes) -> int:
+    """Pure-Python CRC32C (Castagnoli), the JAX package's ``crc32c_py``:
+    the oracle of the native one, and the fallback without it. A Python
+    byte loop: a few MB/s."""
     table = _crc_table()
     crc = 0xFFFFFFFF
     for b in data:
         crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
+
+
+def crc32c(data: bytes) -> int:
+    """CRC32C of ``data``: the native runtime's when it is available,
+    else :func:`crc32c_py`."""
+    from flownet2_tf_tpu_torch.runtime import native
+
+    lib = native.get_native_io()
+    if lib is not None:
+        return lib.crc32c(data)
+    return crc32c_py(data)
 
 
 def _masked_crc(data: bytes) -> int:

@@ -28,10 +28,12 @@ are TPU layout work and are not ported.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import functools
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from flownet2_tf_tpu_torch.utils.precision import f32_policy  # noqa: F401
@@ -60,6 +62,69 @@ def scope(name: str):
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return contextlib.nullcontext()
+
+
+_REMAT = contextvars.ContextVar("flownet2_remat", default=False)
+
+
+@contextlib.contextmanager
+def remat(enabled: bool = True):
+    """Inside this context the models run their segments (:func:`segment`)
+    under ``torch.utils.checkpoint``: a segment keeps only its inputs for
+    the backward and recomputes its inside there (the JAX package's
+    ``TrainConfig.remat``, which wraps the whole forward in
+    ``jax.checkpoint``; one checkpoint around a whole torch forward would
+    recompute every activation at once and save no peak memory). The
+    recompute runs the same ops on the same inputs, so the gradients are
+    bitwise the ones without remat wherever the kernels are deterministic
+    (``f32_policy``; the caller keeps the backward inside it)."""
+    token = _REMAT.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _REMAT.reset(token)
+
+
+def segment(owner: nn.Module, fn, *args):
+    """``fn(*args)``, checkpointed when :func:`remat` is on and something
+    in it needs a gradient: a trainable parameter of ``owner`` (the net
+    whose layers ``fn`` runs) or an input. A frozen stage saves nothing
+    for the backward anyway and runs plainly."""
+    if (_REMAT.get() and torch.is_grad_enabled()
+            and (any(torch.is_tensor(a) and a.requires_grad for a in args)
+                 or any(p.requires_grad for p in owner.parameters()))):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def conv_segments(net: nn.Module, x, names, keep, compute_dtype=None,
+                  scope_prefix: str = ""):
+    """Run ``net``'s convs ``names`` in order from ``x``, one
+    :func:`segment` ending at each name in ``keep`` (the outputs a later
+    layer reads); returns ``{name: output}`` for ``keep``. Each conv runs
+    in the profiler scope ``scope_prefix + name``, or in none if
+    ``scope_prefix`` is None."""
+    acts, group = {}, []
+    for name in names:
+        group.append(name)
+        if name in keep:
+            x = segment(net, functools.partial(
+                _run_convs, net, tuple(group), compute_dtype, scope_prefix),
+                x)
+            acts[name] = x
+            group = []
+    if group:
+        raise ValueError(f"conv_segments: {group} end in no kept output")
+    return acts
+
+
+def _run_convs(net, names, compute_dtype, scope_prefix, x):
+    for name in names:
+        with (contextlib.nullcontext() if scope_prefix is None
+              else scope(scope_prefix + name)):
+            x = getattr(net, name)(x, compute_dtype)
+    return x
 
 
 def compute_dtype_of(name) -> torch.dtype:

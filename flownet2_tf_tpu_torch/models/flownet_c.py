@@ -11,6 +11,8 @@ conv2).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -69,31 +71,35 @@ class FlowNetC(nn.Module):
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy(cd):
             # both towers in one batched pass (shared weights)
-            x = common.nchw(torch.cat([a, b], dim=0), cd)
-            for name, _, _, _ in TOWER:
-                with common.scope(f"tower_{name}"):
-                    x = getattr(self, name)(x, cd)
-                if name == "conv2":
-                    conv2_a = x[:n]
-            feat_a, feat_b = x[:n], x[n:]
-            with common.scope("correlation"):
-                # the kernel reads NHWC-contiguous features: one copy each
-                # of NCHW (f32) features, none of channels_last (bf16) ones
-                cc = correlation(common.nhwc(feat_a).contiguous(),
-                                 common.nhwc(feat_b).contiguous(),
-                                 **CORR_KWARGS)
-                cc = common.leaky_relu(cc)
-            with common.scope("conv_redir"):
-                redir = self.conv_redir(feat_a, cd)
-            x = torch.cat([redir, common.nchw(cc, cd).to(redir.dtype)],
-                          dim=1)
-            acts = {"conv2": conv2_a}
-            for name, _, _, _ in TAIL:
-                with common.scope(name):
-                    x = getattr(self, name)(x, cd)
-                acts[name] = x
+            x = common.conv_segments(
+                self, common.nchw(torch.cat([a, b], dim=0), cd),
+                ("conv1", "conv2"), ("conv2",), cd, "tower_")["conv2"]
+            acts = {"conv2": x[:n]}
+            acts["conv3_1"] = x = common.segment(
+                self, functools.partial(self._cost_volume, n, cd), x)
+            acts.update(common.conv_segments(
+                self, x, [name for name, _, _, _ in TAIL[1:]],
+                flownet_s.KEEP, cd))
             return flownet_s.decoder(self, acts, (in_h, in_w), cd)
 
+    def _cost_volume(self, n, cd, x):
+        """Tower conv3, the correlation, conv_redir and conv3_1: one remat
+        segment, so a remat step runs the correlation forward twice."""
+        with common.scope("tower_conv3"):
+            x = self.conv3(x, cd)
+        feat_a, feat_b = x[:n], x[n:]
+        with common.scope("correlation"):
+            # the kernel reads NHWC-contiguous features: one copy each
+            # of NCHW (f32) features, none of channels_last (bf16) ones
+            cc = correlation(common.nhwc(feat_a).contiguous(),
+                             common.nhwc(feat_b).contiguous(),
+                             **CORR_KWARGS)
+            cc = common.leaky_relu(cc)
+        with common.scope("conv_redir"):
+            redir = self.conv_redir(feat_a, cd)
+        x = torch.cat([redir, common.nchw(cc, cd).to(redir.dtype)], dim=1)
+        with common.scope("conv3_1"):
+            return self.conv3_1(x, cd)
 
 def loss(flow_gt, predictions):
     """Multi-scale average-EPE loss (the JAX package's ``flownet_c.loss``)."""

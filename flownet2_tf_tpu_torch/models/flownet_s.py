@@ -9,6 +9,8 @@ learned ``upsample_flowNtoM`` flow deconvs; final ``flow = predict_flow2 *
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -58,9 +60,10 @@ def decoder(net: nn.Module, acts: dict, input_hw, compute_dtype=None,
     """Shared FlowNet refinement decoder (also used by FlowNetC).
 
     Per level L in 5..2: deconv(L), learned upsample of the previous flow,
-    concat ``[skip, up_feat, up_flow]`` (trap C3), predict. ``acts`` are
-    NCHW; the returned predictions are NHWC and f32 under either policy
-    (the flow heads and upsamplers are f32 layers).
+    concat ``[skip, up_feat, up_flow]`` (trap C3), predict; each level is
+    one remat segment (``common.segment``). ``acts`` are NCHW; the
+    returned predictions are NHWC and f32 under either policy (the flow
+    heads and upsamplers are f32 layers).
     """
     cd = compute_dtype
     preds = {}
@@ -70,20 +73,30 @@ def decoder(net: nn.Module, acts: dict, input_hw, compute_dtype=None,
     preds["predict_flow6"] = common.nhwc(flow)
     for lvl in (5, 4, 3, 2):
         with common.scope(f"refine{lvl}"):
-            up_feat = getattr(net, f"deconv{lvl}")(x, cd)
-            up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow,
-                                                                     cd)
-            skip = acts[SKIP[lvl]]
-            # the flow stays f32 in preds; only the concat copy takes the
-            # skip's dtype, so the feature map is not promoted back to f32
-            x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
-            flow = getattr(net, f"predict_flow{lvl}")(x, cd)
+            x, flow = common.segment(
+                net, functools.partial(_refine, net, lvl, cd), x, flow,
+                acts[SKIP[lvl]])
         preds[f"predict_flow{lvl}"] = common.nhwc(flow)
     with common.scope("upsample_out"):
         preds["flow"] = resize_bilinear_tf1(
             preds["predict_flow2"] * 20.0, input_hw[0], input_hw[1]
         )
     return preds
+
+
+def _refine(net, lvl, cd, x, flow, skip):
+    """Decoder level ``lvl``: (features, flow) of the level above ->
+    (concat, flow) of this one; one remat segment."""
+    up_feat = getattr(net, f"deconv{lvl}")(x, cd)
+    up_flow = getattr(net, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
+    # the flow stays f32 in preds; only the concat copy takes the skip's
+    # dtype, so the feature map is not promoted back to f32
+    x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+    return x, getattr(net, f"predict_flow{lvl}")(x, cd)
+
+
+# the encoder outputs a later layer reads: each ends a remat segment
+KEEP = (*SKIP.values(), "conv6_1")
 
 
 class FlowNetS(nn.Module):
@@ -111,12 +124,9 @@ class FlowNetS(nn.Module):
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy(compute_dtype):
-            x = common.nchw(x, compute_dtype)
-            acts = {}
-            for name, _, _, _ in ENCODER:
-                with common.scope(name):
-                    x = getattr(self, name)(x, compute_dtype)
-                acts[name] = x
+            acts = common.conv_segments(
+                self, common.nchw(x, compute_dtype),
+                [name for name, _, _, _ in ENCODER], KEEP, compute_dtype)
             return decoder(self, acts, (in_h, in_w), compute_dtype)
 
 

@@ -10,6 +10,8 @@ flow scaled by 20 and resized to input resolution.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -74,33 +76,33 @@ class FlowNetSD(nn.Module):
         n, in_h, in_w, _ = x.shape
         common.check_divisible_by_64(in_h, in_w)
         with common.f32_policy(cd):
-            x = common.nchw(x, cd)
-            acts = {}
-            for name, _, _, _ in ENCODER:
-                with common.scope(name):
-                    x = getattr(self, name)(x, cd)
-                acts[name] = x
-
+            acts = common.conv_segments(
+                self, common.nchw(x, cd), [name for name, _, _, _ in ENCODER],
+                (*SKIP.values(), "conv6_1"), cd)
+            x = acts["conv6_1"]
             preds = {}
             with common.scope("predict_flow6"):
                 flow = self.predict_flow6(x, cd)
             preds["predict_flow6"] = common.nhwc(flow)
             for lvl in (5, 4, 3, 2):
                 with common.scope(f"refine{lvl}"):
-                    up_feat = getattr(self, f"deconv{lvl}")(x, cd)
-                    up_flow = getattr(
-                        self, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
-                    skip = acts[SKIP[lvl]]
-                    x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)],
-                                  dim=1)
-                    inter = getattr(self, f"interconv{lvl}")(x, cd)
-                    flow = getattr(self, f"predict_flow{lvl}")(inter, cd)
+                    x, flow = common.segment(
+                        self, functools.partial(self._refine, lvl, cd), x,
+                        flow, acts[SKIP[lvl]])
                 preds[f"predict_flow{lvl}"] = common.nhwc(flow)
             with common.scope("upsample_out"):
                 preds["flow"] = resize_bilinear_tf1(
                     preds["predict_flow2"] * 20.0, in_h, in_w
                 )
             return preds
+
+    def _refine(self, lvl, cd, x, flow, skip):
+        """Decoder level ``lvl`` with its interconv; one remat segment."""
+        up_feat = getattr(self, f"deconv{lvl}")(x, cd)
+        up_flow = getattr(self, f"upsample_flow{lvl + 1}to{lvl}")(flow, cd)
+        x = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+        inter = getattr(self, f"interconv{lvl}")(x, cd)
+        return x, getattr(self, f"predict_flow{lvl}")(inter, cd)
 
 
 def loss(flow_gt, predictions):

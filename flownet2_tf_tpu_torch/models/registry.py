@@ -33,10 +33,11 @@ class ModelSpec:
     # whether the model has stack warps (and so takes a warp_res)
     stack_warps: bool = False
 
-    def build(self, device="cpu", warp_res: int = 1) -> nn.Module:
-        """The module on ``device`` in eval mode. ``warp_res``: the stack
-        warps' grid factor (1, 2 or 4); models without stack warps take
-        only 1."""
+    def build(self, device="cuda", warp_res: int = 1) -> nn.Module:
+        """The module on ``device`` (the card by default, like every entry
+        point of the port; pass ``"cpu"`` for the CPU) in eval mode.
+        ``warp_res``: the stack warps' grid factor (1, 2 or 4); models
+        without stack warps take only 1."""
         if self.stack_warps:
             return self.cls(warp_res).to(device).eval()
         if warp_res != 1:

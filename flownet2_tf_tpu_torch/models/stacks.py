@@ -30,6 +30,8 @@ approximation work and are not ported.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -199,34 +201,32 @@ class FlowNet2(nn.Module):
 
     def _fusion_head(self, x, cd):
         """Fusion pyramid + refinement (fuse_conv* -> predict_flow2/1/0),
-        NCHW in, NHWC predictions out."""
-        acts = {}
-        for name, _, _, _, _ in FUSION:
-            x = getattr(self, name)(x, cd)
-            acts[name] = x
-
+        NCHW in, NHWC predictions out; remat segments as in FlowNetS."""
+        acts = common.conv_segments(
+            self, x, [name for name, _, _, _, _ in FUSION],
+            ("fuse_conv0", "fuse_conv1_1", "fuse_conv2_1"), cd, None)
         preds = {}
-        flow2 = self.predict_flow2(x, cd)
+        flow2 = self.predict_flow2(acts["fuse_conv2_1"], cd)
         preds["predict_flow2"] = common.nhwc(flow2)
-
-        up_feat1 = self.fuse_deconv1(x, cd)
-        up_flow1 = self.fuse_upsample_flow2to1(flow2, cd)
-        skip1 = acts["fuse_conv1_1"]
-        concat1 = torch.cat([skip1, up_feat1, up_flow1.to(skip1.dtype)],
-                            dim=1)
-        inter1 = self.fuse_interconv1(concat1, cd)
-        flow1 = self.predict_flow1(inter1, cd)
+        concat1, flow1 = common.segment(
+            self, functools.partial(self._fusion_level, 1, cd),
+            acts["fuse_conv2_1"], flow2, acts["fuse_conv1_1"])
         preds["predict_flow1"] = common.nhwc(flow1)
-
-        up_feat0 = self.fuse_deconv0(concat1, cd)
-        up_flow0 = self.fuse_upsample_flow1to0(flow1, cd)
-        skip0 = acts["fuse_conv0"]
-        concat0 = torch.cat([skip0, up_feat0, up_flow0.to(skip0.dtype)],
-                            dim=1)
-        inter0 = self.fuse_interconv0(concat0, cd)
-        flow0 = self.predict_flow0(inter0, cd)
+        # level 0 deconvolves level 1's concat, not its interconv
+        _, flow0 = common.segment(
+            self, functools.partial(self._fusion_level, 0, cd), concat1,
+            flow1, acts["fuse_conv0"])
         preds["predict_flow0"] = common.nhwc(flow0)
         return preds
+
+    def _fusion_level(self, lvl, cd, x, flow, skip):
+        """Fusion level ``lvl`` (1 or 0): -> (concat, flow)."""
+        up_feat = getattr(self, f"fuse_deconv{lvl}")(x, cd)
+        up_flow = getattr(self, f"fuse_upsample_flow{lvl + 1}to{lvl}")(flow,
+                                                                       cd)
+        concat = torch.cat([skip, up_feat, up_flow.to(skip.dtype)], dim=1)
+        inter = getattr(self, f"fuse_interconv{lvl}")(concat, cd)
+        return concat, getattr(self, f"predict_flow{lvl}")(inter, cd)
 
 
 # the fusion net's own heads (predict_flow2/1/0 at 1/4, 1/2, 1/1 of the

@@ -148,16 +148,14 @@ def train_step_ms(model_name="s", batch=8, height=320, width=448,
     device once (so the timing holds no host work), with the JAX
     package's ``"bench"`` schedule at ``lr``; the updated state feeds
     the next step. ``frozen``: the frozen scopes (None: the model's
-    default). Timed by :func:`marginal_ms` (runs of 1 and 1 + ``iters``
-    steps); on the CPU the times are CPU times. Raises if the last
-    step's loss is not finite.
+    default); ``remat``: the trainer's remat segments
+    (``TrainConfig.remat``). Timed by :func:`marginal_ms` (runs of 1 and
+    1 + ``iters`` steps); on the CPU the times are CPU times. Raises if
+    the last step's loss is not finite.
     """
     from flownet2_tf_tpu_torch.data.loader import SyntheticFlowDataset
     from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
 
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet (ROADMAP Queue 1 item 21)")
     if stop_grad_frozen is not None:
         raise NotImplementedError(
             "stop_grad_frozen has no counterpart in the port: frozen "
@@ -179,6 +177,7 @@ def train_step_ms(model_name="s", batch=8, height=320, width=448,
             log_dir=log_dir,
             compute_dtype=compute_dtype,
             augment=augment,
+            remat=remat,
             tensorboard=False,
             checkpoint_every=0,
             device=device,

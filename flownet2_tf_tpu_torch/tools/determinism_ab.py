@@ -1,14 +1,15 @@
 """A/B of cuDNN's deterministic algorithms on the port's cells, on a card.
 
     python -m flownet2_tf_tpu_torch.tools.determinism_ab [--out FILE]
+        [--cells SUBSTRING ...]
 
 Every forward and train step of the port runs inside
-``utils/precision.py::f32_policy``, which turns TF32 off and, on the f32
-path, picks cuDNN's deterministic algorithms; the f32 path's deconvs run
-as sub-pixel convs (``models/common.py::deconv_subpixel``) because
-cuDNN's deterministic f32 transposed conv is slow. This script measures
-what those choices cost, in turns within one process, under four
-settings:
+``utils/precision.py::f32_policy``, which turns TF32 off and picks
+cuDNN's deterministic algorithms under both policies; the f32 path's
+deconvs run as sub-pixel convs (``models/common.py::deconv_subpixel``)
+because cuDNN's deterministic f32 transposed conv is slow. This script
+measures what those choices cost, in turns within one process, under
+four settings:
 
 * ``default``: TF32 off, cuDNN's default algorithms, the f32 deconvs as
   cuDNN's transposed conv (the port before its entry points were made
@@ -16,16 +17,20 @@ settings:
 * ``deterministic_transposed``: the deterministic algorithms with cuDNN's
   transposed conv for the f32 deconvs;
 * ``port``: the port as it runs;
-* ``deterministic_all``: the port with the deterministic algorithms
-  under the bf16 policy too (the choice the bf16 cells weigh).
+* ``bf16_default``: the port with cuDNN's default algorithms under the
+  bf16 policy (deterministic on the f32 path only).
 
 Cells: ``cli bench``'s FlowNet2 448x1024 forward (``tools/bench.py``),
 f32 and bf16 at b1 and b8; ``benchlib.train_step_ms`` of FlowNetC (f32,
-bf16) and FlowNetCSS (bf16) at b8 320x448; and the device time of each
-f32 b1 FlowNet2 deconv. The settings are applied by swapping the
-package's ``f32_policy`` and ``Deconv.forward`` for the run of one cell,
-and put back after it. It needs a CUDA card and prints one JSON line per
-measurement, then a summary line.
+bf16) and FlowNetCSS (bf16) at b8 320x448. Then the price split by
+layer: the device time of each conv and deconv of the f32 b1 FlowNet2
+forward (f32 settings), of the bf16 b1 and b8 FlowNet2 forwards and of
+the bf16 FlowNetC b8 320x448 train step (forward and backward of each
+layer on its own input; ``port`` against ``bf16_default``). The settings are
+applied by swapping the package's ``f32_policy`` and ``Deconv.forward``
+for the run of one cell, and put back after it. ``--cells`` keeps the
+cells whose name holds one of the substrings. It needs a CUDA card and
+prints one JSON line per measurement, then a summary line.
 """
 
 from __future__ import annotations
@@ -41,8 +46,7 @@ import sys
 import torch
 import torch.nn.functional as F
 
-SETTINGS = ("default", "deterministic_transposed", "port",
-            "deterministic_all")
+SETTINGS = ("default", "deterministic_transposed", "port", "bf16_default")
 _POLICY_MODULES = (
     "flownet2_tf_tpu_torch.models.common",
     "flownet2_tf_tpu_torch.ops.downsample",
@@ -86,11 +90,16 @@ def setting(name):
         importlib.import_module(module)
     real_policy, real_forward = precision.f32_policy, common.Deconv.forward
 
-    def deterministic_all(compute_dtype=None):
-        return real_policy(None)
+    @contextlib.contextmanager
+    def bf16_default(compute_dtype=None):
+        prev = torch.backends.cudnn.deterministic
+        with real_policy(compute_dtype):
+            if compute_dtype not in (None, torch.float32):
+                torch.backends.cudnn.deterministic = prev
+            yield
 
     stand_in = {"default": _tf32_off_only,
-                "deterministic_all": deterministic_all}.get(name)
+                "bf16_default": bf16_default}.get(name)
 
     def modules_holding(policy):
         return [m for key, m in list(sys.modules.items())
@@ -111,47 +120,68 @@ def setting(name):
         common.Deconv.forward = real_forward
 
 
-def _deconv_device_ms(launches=10, reps=3):
-    """{setting: (total ms, {layer: ms})}: the device time of each f32
-    FlowNet2 b1 448x1024 deconv on its own input, launches queued behind
-    a sleep kernel so that the host's launch cost is hidden."""
+def _layer_device_ms(model_name, dtype, batch, height, width, settings,
+                     backward=False, launches=10, reps=3):
+    """{setting: (total ms, {layer: ms})}: the device time of each conv
+    and deconv of one ``model_name`` forward at ``dtype``, on its own
+    input, with ``backward`` the gradients that a train step takes there
+    too (the parameters' and, where the step needs it, the input's).
+    Launches are queued behind a sleep kernel so that the host's launch
+    cost is hidden."""
     from flownet2_tf_tpu_torch.models import common
     from flownet2_tf_tpu_torch.models.registry import get_model
 
-    net = get_model("2").build("cuda")
+    cd = common.compute_dtype_of(dtype)
+    net = get_model(model_name).build("cuda")
     common.msra_init_(net, torch.Generator().manual_seed(0))
     inputs = {}
 
     def keep(name):
         def hook(module, args):
-            inputs.setdefault(name, args[0].clone())
+            x = args[0]
+            inputs.setdefault(name, (x.detach().clone(), x.requires_grad))
         return hook
 
     hooks = [m.register_forward_pre_hook(keep(n))
-             for n, m in net.named_modules() if isinstance(m, common.Deconv)]
+             for n, m in net.named_modules()
+             if isinstance(m, (common.Conv, common.Deconv))]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    a, b = (torch.rand((1, 448, 1024, 3), generator=gen, device="cuda")
-            for _ in range(2))
-    with torch.no_grad(), common.f32_policy():
-        net({"input_a": a, "input_b": b})
+    a, b = (torch.rand((batch, height, width, 3), generator=gen,
+                       device="cuda") for _ in range(2))
+    with torch.set_grad_enabled(backward), common.f32_policy(cd):
+        net({"input_a": a, "input_b": b}, cd)
     for h in hooks:
         h.remove()
     modules = dict(net.named_modules())
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run(mod, x, wants_dx, g):
+        if not backward:
+            return mod(x, cd)
+        x = x.detach().requires_grad_(wants_dx)
+        y = mod(x, cd)
+        leaves = [*mod.parameters(), *([x] if wants_dx else [])]
+        return torch.autograd.grad(y, leaves, g)
+
     out = {}
-    for name in SETTINGS[:3]:
+    for name in settings:
         layers = {}
-        with setting(name), torch.no_grad(), common.f32_policy():
-            for layer, x in inputs.items():
+        with setting(name), torch.set_grad_enabled(backward), \
+                common.f32_policy(cd):
+            for layer, (x, wants_dx) in inputs.items():
                 mod = modules[layer]
+                g = None
+                if backward:
+                    with torch.no_grad():
+                        g = torch.randn_like(mod(x, cd))
                 for _ in range(2):
-                    mod(x)
+                    run(mod, x, wants_dx, g)
                 times = []
                 for _ in range(reps):
                     torch.cuda._sleep(20_000_000)
                     start.record()
                     for _ in range(launches):
-                        mod(x)
+                        run(mod, x, wants_dx, g)
                     end.record()
                     end.synchronize()
                     times.append(start.elapsed_time(end) / launches)
@@ -167,6 +197,9 @@ def main(argv=None):
         prog="python -m flownet2_tf_tpu_torch.tools.determinism_ab")
     parser.add_argument("--out", default=None,
                         help="also write the results here as JSON")
+    parser.add_argument("--cells", nargs="*", default=None,
+                        help="run only the cells whose name holds one of "
+                             "these substrings (default: all)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("determinism_ab: needs a CUDA card")
@@ -185,22 +218,55 @@ def main(argv=None):
         return lambda: benchlib.train_step_ms(model, 8, 320, 448, dtype,
                                               iters=8)[0]
 
+    def layers(model, dtype, batch, hw, settings, backward=False):
+        def run():
+            split = _layer_device_ms(model, dtype, batch, *hw, settings,
+                                     backward=backward)
+            base = split[settings[0]][1]
+            return {name: {
+                "total": total,
+                # the layers whose time moved most against the first
+                # setting, with both times
+                "top": sorted(((k, v, base[k]) for k, v in ms.items()),
+                              key=lambda kv: -abs(kv[1] - kv[2]))[:6]}
+                for name, (total, ms) in split.items()}
+        return run
+
     f32_turns = ("default", "port", "port", "default",
                  "deterministic_transposed")
-    bf16_turns = ("deterministic_all", "port", "port",
-                  "deterministic_all") * 2
+    bf16_turns = ("bf16_default", "port", "port", "bf16_default") * 3
     cells = (
         ("bench f32 b1 ms/pair", fwd("float32", 1, 10), f32_turns),
         ("bench f32 b8 ms/pair", fwd("float32", 8, 4), f32_turns),
-        ("bench bf16 b1 ms/pair", fwd("bfloat16", 1, 10), bf16_turns),
-        ("bench bf16 b8 ms/pair", fwd("bfloat16", 8, 4), bf16_turns[:4]),
+        # 40 forwards a sample at b1: its launch-bound spread must fall
+        # under the difference it measures
+        ("bench bf16 b1 ms/pair", fwd("bfloat16", 1, 40), bf16_turns),
+        ("bench bf16 b8 ms/pair", fwd("bfloat16", 8, 4), bf16_turns[:8]),
         ("step c f32 ms", step("c", "float32"), f32_turns),
-        ("step c bf16 ms", step("c", "bfloat16"), bf16_turns),
-        ("step css bf16 ms", step("css", "bfloat16"), bf16_turns[:6]),
+        ("step c bf16 ms", step("c", "bfloat16"), bf16_turns[:8]),
+        ("step css bf16 ms", step("css", "bfloat16"), bf16_turns[:8]),
     )
+    splits = (
+        ("layers f32 b1 forward device ms",
+         layers("2", "float32", 1, (448, 1024), SETTINGS[:3])),
+        # b1's device time apart from its launch-bound host noise
+        ("layers bf16 b1 forward device ms",
+         layers("2", "bfloat16", 1, (448, 1024), ("bf16_default", "port"))),
+        ("layers bf16 b8 forward device ms",
+         layers("2", "bfloat16", 8, (448, 1024), ("bf16_default", "port"))),
+        ("layers c bf16 b8 step device ms",
+         layers("c", "bfloat16", 8, (320, 448), ("bf16_default", "port"),
+                backward=True)),
+    )
+
+    def wanted(cell):
+        return args.cells is None or any(c in cell for c in args.cells)
+
     results = {"card": card, "torch": torch.__version__,
                "cudnn": torch.backends.cudnn.version(), "cells": {}}
     for cell, run, turns in cells:
+        if not wanted(cell):
+            continue
         runs = {}
         for name in turns:
             with setting(name):
@@ -211,11 +277,10 @@ def main(argv=None):
         results["cells"][cell] = {
             name: {"runs": v, "median": statistics.median(v)}
             for name, v in runs.items()}
-    deconvs = _deconv_device_ms()
-    results["f32 b1 deconvs device ms"] = {
-        name: {"total": total,
-               "top": sorted(layers.items(), key=lambda kv: -kv[1])[:3]}
-        for name, (total, layers) in deconvs.items()}
+    for cell, run in splits:
+        if wanted(cell):
+            results[cell] = run()
+            print(json.dumps({cell: results[cell]}), flush=True)
     print(json.dumps(results), flush=True)
     if args.out:
         with open(args.out, "w") as f:

@@ -3,9 +3,10 @@
 Copy of ``flownet2_tf_tpu/tools/make_tfrecords.py``. Records hold the
 raw-bytes features ``image_a``, ``image_b`` (uint8 HxWx3) and ``flow``
 (float32 HxWx2), written by ``data/tfrecord.py``: readable by TF's
-TFRecordDataset and by both packages' readers. The port computes the
-records' CRC32C in pure Python (a few MB/s: a 384x512 FlyingChairs
-record is about 2.75 MB).
+TFRecordDataset and by both packages' readers. The records' CRC32C runs
+in the native IO runtime (``runtime/native.py``) when it builds, else in
+pure Python (a few MB/s: a 384x512 FlyingChairs record is about
+2.75 MB).
 
 CLI: ``python -m flownet2_tf_tpu_torch.cli make-tfrecords --data_root ...
 --out train.tfrecords [--out_val val.tfrecords --val_count 640]``.

@@ -33,10 +33,23 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   layout, flat '/' keys, read by both packages' ``load_params_tree``) and
   ``optimizer.pt`` (Adam state and step). Saving is synchronous (the JAX
   package saves asynchronously); keep-K and auto-resume from the newest
-  are the same, and so is the interrupt checkpoint in ``finally``.
+  are the same, and so is the interrupt checkpoint in ``finally``;
+* ``device_prefetch`` -> ``fit`` feeds its steps through
+  ``parallel/mesh.py::DevicePrefetcher``: on a card a worker thread pins
+  batch k+1 and uploads it on a copy stream while step k runs
+  (``'auto'`` is ``'thread'``; ``'inline'`` stages on the training
+  thread);
+* ``remat`` (``jax.checkpoint`` around the whole forward) -> the models'
+  segments under ``torch.utils.checkpoint`` (``models/common.py::
+  remat``): each trainable net's encoder convs in groups and each decoder
+  level keep only their inputs and are recomputed in the backward, which
+  runs inside ``f32_policy`` like the forward;
+* ``image_summary_every`` -> every N steps four TensorBoard images of
+  one center-cropped example: the inputs and the predicted and GT flows
+  (``utils/flowlib.py::flow_to_image``), the prediction from a forward on
+  the device under ``torch.no_grad()``.
 
-Not ported yet (ROADMAP): ``remat``, ``device_prefetch``, TensorBoard
-image summaries and data parallelism.
+Not ported yet (ROADMAP): data parallelism.
 """
 
 from __future__ import annotations
@@ -58,8 +71,10 @@ from flownet2_tf_tpu_torch.models.common import (
     endpoint_error_mean,
     f32_policy,
     msra_init_,
+    remat,
 )
 from flownet2_tf_tpu_torch.models.registry import get_model
+from flownet2_tf_tpu_torch.parallel.mesh import DevicePrefetcher
 from flownet2_tf_tpu_torch.training import optim
 from flownet2_tf_tpu_torch.training.infer import pad_to_multiple, resolve_device
 from flownet2_tf_tpu_torch.training.warmstart import (
@@ -90,6 +105,15 @@ def _images_to_float(x):
     return x.to(torch.float32)
 
 
+def _use_threaded_prefetch(mode: str) -> bool:
+    """``TrainConfig.device_prefetch`` -> whether batches stage on a worker
+    thread: ``'thread'`` and ``'auto'`` do, ``'inline'`` does not."""
+    if mode not in ("auto", "thread", "inline"):
+        raise ValueError(f"device_prefetch must be 'auto'|'thread'|"
+                         f"'inline', got {mode!r}")
+    return mode != "inline"
+
+
 @dataclasses.dataclass
 class TrainConfig:
     model: str = "s"
@@ -104,6 +128,11 @@ class TrainConfig:
     checkpoint_every: int = 2500
     keep_checkpoints: int = 5
     tensorboard: bool = True
+    image_summary_every: int = 0  # 0 = off
+    # recompute each trainable net's segments in the backward
+    # (models/common.py::remat): about a third more forward work for a
+    # lower peak of activation memory
+    remat: bool = False
     # split each batch into N equal microbatches, gradients averaged: one
     # update per batch, ~N-fold lower activation memory
     grad_accum: int = 1
@@ -118,6 +147,10 @@ class TrainConfig:
     # the stack warps' grid factor (1 exact, 2 half, 4 quarter); models
     # without stack warps ignore it
     warp_res: int = 1
+    # batch staging: 'auto' | 'thread' | 'inline'. 'thread' pins batch k+1
+    # and uploads it on a copy stream from a worker thread while step k
+    # runs; 'auto' is 'thread'
+    device_prefetch: str = "auto"
 
 
 @dataclasses.dataclass
@@ -157,6 +190,8 @@ class Trainer:
         )
         self.weight_decay = float(self.schedule.get("weight_decay", 0.0))
         self.lr_fn = make_lr_schedule(self.schedule)
+        self._threaded_prefetch = _use_threaded_prefetch(
+            config.device_prefetch)
         self._updating = False
 
     # -- state ------------------------------------------------------------
@@ -233,9 +268,20 @@ class Trainer:
                 _images_to_float(image_b.to(self.device)),
                 flow.to(flow_wire).to(self.device).float())
 
+    def _wire(self, batch):
+        """The host batch with its flow cast to the wire dtype, for the
+        upload (``transfer_flow_dtype``)."""
+        if self.flow_wire_dtype == torch.float32:
+            return batch
+        flow = batch["flow"]
+        if not isinstance(flow, torch.Tensor):
+            flow = torch.from_numpy(np.asarray(flow))
+        return {**batch, "flow": flow.to(self.flow_wire_dtype)}
+
     def _loss(self, model, image_a, image_b, flow):
-        preds = model({"input_a": image_a, "input_b": image_b},
-                      self.compute_dtype)
+        with remat(self.config.remat):
+            preds = model({"input_a": image_a, "input_b": image_b},
+                          self.compute_dtype)
         data_loss = self.spec.loss(flow, preds)
         reg = optim.l2_regularization(model, self.frozen)
         total = data_loss + self.weight_decay * reg
@@ -280,6 +326,40 @@ class Trainer:
         sums = sums / accum
         return {"loss": sums[0], "data_loss": sums[1], "epe": sums[2],
                 "grad_norm": grad_norm, "lr": lr}
+
+    def _write_image_summaries(self, writer, state, batch, device_batch,
+                               preprocess, step):
+        """TensorBoard images of the batch's first example, center-cropped
+        (``augmentation.center_crop_batch``): ``input_a``, ``input_b``,
+        ``pred_flow`` and ``gt_flow`` (``flowlib.flow_to_image``). The
+        forward runs on the device copy on the live parameters under
+        ``torch.no_grad()``; only the predicted flow crosses to the host,
+        and the other three images come from the host batch."""
+        from flownet2_tf_tpu_torch.utils.flowlib import flow_to_image
+
+        def example(b):
+            a, bb, f = (b[k][:1] if isinstance(b[k], torch.Tensor)
+                        else torch.from_numpy(np.asarray(b[k][:1]))
+                        for k in ("image_a", "image_b", "flow"))
+            a, bb, f = _images_to_float(a), _images_to_float(bb), f.float()
+            if preprocess is not None:
+                a, bb, f = augmentation.center_crop_batch(a, bb, f,
+                                                          preprocess)
+            return a, bb, f
+
+        image_a, image_b, flow_gt = example(batch)
+        dev_a, dev_b, _ = example(device_batch)
+        with torch.no_grad(), f32_policy(self.compute_dtype):
+            pred = state.model({"input_a": dev_a, "input_b": dev_b},
+                               self.compute_dtype)["flow"]
+        pred = pred[0].cpu().numpy()
+        writer.image("input_a", np.uint8(
+            np.clip(image_a[0].numpy(), 0, 1) * 255), step)
+        writer.image("input_b", np.uint8(
+            np.clip(image_b[0].numpy(), 0, 1) * 255), step)
+        writer.image("pred_flow", flow_to_image(pred), step)
+        writer.image("gt_flow", flow_to_image(flow_gt[0].numpy()), step)
+        writer.flush()
 
     # -- the loop -----------------------------------------------------------
 
@@ -330,15 +410,18 @@ class Trainer:
 
             writer = SummaryWriter(cfg.log_dir)
         # Sample-exact resume: restart the stream at the batch the
-        # interrupted run would have consumed next.
-        batches = loader.batches(start_batch=state.step)
+        # interrupted run would have consumed next. Batch k+1 is staged on
+        # the device while step k runs (TrainConfig.device_prefetch).
+        batches = DevicePrefetcher(
+            loader.batches(start_batch=state.step), self.device,
+            threaded=self._threaded_prefetch, transform=self._wire)
         t_last = time.perf_counter()
         examples_since = 0
         try:
-            for batch in batches:
+            for batch, device_batch in batches:
                 if state.step >= max_steps:
                     break
-                metrics = self.train_step(state, batch, preprocess)
+                metrics = self.train_step(state, device_batch, preprocess)
                 step = state.step
                 examples_since += batch["image_a"].shape[0]
 
@@ -364,6 +447,11 @@ class Trainer:
                         if writer:
                             writer.scalar("val_epe", val_epe, step)
                             writer.flush()
+                if (writer and cfg.image_summary_every
+                        and step % cfg.image_summary_every == 0):
+                    self._write_image_summaries(writer, state, batch,
+                                                device_batch, preprocess,
+                                                step)
                 if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                     self.save(state)
                     saved_step = step

@@ -1,12 +1,13 @@
-"""Minimal TensorBoard event writer (scalars), no TensorFlow needed.
+"""Minimal TensorBoard event writer (scalars and images), no TensorFlow
+needed.
 
-Port of the scalar half of ``flownet2_tf_tpu/utils/tensorboard.py``, with
-the few TFRecord framing and protobuf helpers it needs copied from
-``flownet2_tf_tpu/data/tfrecord.py`` (the JAX package's copies import
-JAX through its package). It writes ``events.out.tfevents.*`` files:
-TFRecord-framed Event{wall_time, step, summary{value{tag,
-simple_value}}}, readable by a stock TensorBoard. Image summaries are
-not ported yet.
+Port of ``flownet2_tf_tpu/utils/tensorboard.py`` over the port's own
+TFRecord framing and protobuf helpers (``data/tfrecord.py``, whose masked
+CRC32C runs in the native IO runtime when it builds). It writes
+``events.out.tfevents.*`` files: TFRecord-framed Event{wall_time, step,
+summary{value{tag, simple_value | image}}}, readable by a stock
+TensorBoard. For the same array, tag and step a record is byte-identical
+to the JAX writer's, apart from the wall time.
 """
 
 from __future__ import annotations
@@ -15,55 +16,16 @@ import os
 import socket
 import struct
 import time
+import zlib
 
+import numpy as np
 
-def _crc_table():
-    poly = 0x82F63B78  # CRC32C (Castagnoli)
-    table = []
-    for i in range(256):
-        crc = i
-        for _ in range(8):
-            crc = (crc >> 1) ^ poly if crc & 1 else crc >> 1
-        table.append(crc)
-    return table
-
-
-_CRC_TABLE = _crc_table()
-
-
-def crc32c(data: bytes) -> int:
-    """Pure-Python CRC32C; event records are small."""
-    crc = 0xFFFFFFFF
-    for b in data:
-        crc = _CRC_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
-
-
-def _masked_crc(data: bytes) -> int:
-    crc = crc32c(data)
-    return ((crc >> 15) | (crc << 17)) + 0xA282EAD8 & 0xFFFFFFFF
-
-
-def _write_varint(value: int) -> bytes:
-    if value < 0:
-        value &= (1 << 64) - 1  # proto int64: 10-byte two's complement
-    out = bytearray()
-    while True:
-        bits = value & 0x7F
-        value >>= 7
-        if value:
-            out.append(bits | 0x80)
-        else:
-            out.append(bits)
-            return bytes(out)
-
-
-def _field_header(field: int, wire: int) -> bytes:
-    return _write_varint((field << 3) | wire)
-
-
-def _length_delimited(field: int, payload: bytes) -> bytes:
-    return _field_header(field, 2) + _write_varint(len(payload)) + payload
+from flownet2_tf_tpu_torch.data.tfrecord import (
+    _field_header,
+    _length_delimited,
+    _masked_crc,
+    _write_varint,
+)
 
 
 def _double_field(field: int, value: float) -> bytes:
@@ -76,6 +38,21 @@ def _float_field(field: int, value: float) -> bytes:
 
 def _varint_field(field: int, value: int) -> bytes:
     return _field_header(field, 0) + _write_varint(value)
+
+
+def encode_png8(arr: np.ndarray) -> bytes:
+    """Encode (H, W, 3) uint8 -> PNG bytes (filter 0, zlib level 6)."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    h, w = arr.shape[:2]
+    raw = b"".join(b"\x00" + arr[y].tobytes() for y in range(h))
+
+    def chunk(tag, payload):
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 class SummaryWriter:
@@ -121,6 +98,18 @@ class SummaryWriter:
     def scalars(self, metrics: dict, step: int):
         self._event(step, b"".join(self._value(tag, float(v))
                                    for tag, v in metrics.items()))
+
+    def image(self, tag: str, array: np.ndarray, step: int):
+        """array: (H, W, 3) uint8 (e.g. ``flowlib.flow_to_image``'s)."""
+        image_proto = (
+            _varint_field(1, array.shape[0])
+            + _varint_field(2, array.shape[1])
+            + _varint_field(3, 3)
+            + _length_delimited(4, encode_png8(array))
+        )
+        val = _length_delimited(1, tag.encode()) + _length_delimited(
+            4, image_proto)
+        self._event(step, _length_delimited(1, val))
 
     def flush(self):
         self._f.flush()

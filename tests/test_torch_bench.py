@@ -238,7 +238,7 @@ def test_marginal_ms_on_cpu():
 def test_train_step_ms_on_cpu(monkeypatch):
     """``train_step_ms`` times the trainer's own step: its weights after
     the timed steps equal a ``Trainer`` run of as many steps on the same
-    batch."""
+    batch; with ``remat`` it times as many remat steps."""
     from flownet2_tf_tpu_torch.data.loader import SyntheticFlowDataset
 
     seen = []
@@ -272,8 +272,15 @@ def test_train_step_ms_on_cpu(monkeypatch):
                                  ref_state.model.parameters()):
         assert torch.equal(got, want), name
 
-    with pytest.raises(NotImplementedError, match="item 21"):
-        benchlib.train_step_ms("c", remat=True, device="cpu")
+    # remat runs on the CPU: the trainer's remat step, as many of them
+    del seen[:]
+    monkeypatch.setattr(loop.Trainer, "train_step", spy)
+    ms, _ = benchlib.train_step_ms("c", batch=2, height=64, width=64,
+                                   compute_dtype="float32", iters=2,
+                                   remat=True, device="cpu")
+    monkeypatch.undo()
+    assert ms > 0 and len(seen) == 2 * (1 + 3)
+    assert seen[0][0].config.remat and seen[0][1].step == len(seen)
     with pytest.raises(NotImplementedError, match="stop_grad_frozen"):
         benchlib.train_step_ms("c", stop_grad_frozen=True, device="cpu")
 
@@ -368,10 +375,10 @@ def test_determinism_ab_settings_restore_the_package():
                 assert kept == [name in ("port", "deterministic_transposed")
                                 ] * len(holders)
                 assert (common.Deconv.forward is forward) == (
-                    name in ("port", "deterministic_all"))
+                    name in ("port", "bf16_default"))
                 with common.f32_policy(torch.bfloat16):
                     assert torch.backends.cudnn.deterministic == (
-                        name == "deterministic_all")
+                        name in ("port", "deterministic_transposed"))
                 with torch.no_grad():
                     torch.testing.assert_close(layer(x), want, rtol=1e-5,
                                                atol=1e-6)

@@ -185,17 +185,16 @@ def test_unsupported_compute_dtype_is_refused():
 @pytest.mark.parametrize("before", [(True, True, False), (False, True, True)])
 @pytest.mark.parametrize("cd", [None, torch.float32, BF16])
 def test_f32_policy_sets_and_restores_its_flags(before, cd):
-    """``f32_policy``: no TF32 for cuDNN convs and matmuls, and on the f32
-    path cuDNN's deterministic algorithms (the JAX reference repeats
-    itself bit for bit); under the bf16 policy the caller's deterministic
-    flag stays. The caller's three flags come back on exit, also after an
-    exception."""
+    """``f32_policy``: no TF32 for cuDNN convs and matmuls, and cuDNN's
+    deterministic algorithms under both policies, the bf16 one included
+    (the JAX reference repeats itself bit for bit). The caller's three
+    flags come back on exit, also after an exception."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
 
     def flags():
         return cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic
 
-    inside = (False, False, True if cd != BF16 else before[2])
+    inside = (False, False, True)
     saved = flags()
     try:
         cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic = before

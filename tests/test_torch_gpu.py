@@ -405,6 +405,32 @@ def test_f32_served_calls_are_repeatable(gen, tmp_path, warp_mode):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("bundle", [False, True])
+def test_bf16_served_calls_are_repeatable(gen, tmp_path, bundle):
+    """Two served calls of a bf16 half-res FlowNet2 artifact (one shape,
+    and a bundle) are bitwise equal without any flag set by the
+    caller."""
+    from flownet2_tf_tpu_torch.tools import aot
+
+    tree, _ = _flownet2_npz(tmp_path)
+    path = tmp_path / "f2.flowpak"
+    if bundle:
+        aot.export_serving_bundle("2", tree, [(128, 192, 1), (128, 192, 2)],
+                                  path, device="cuda")
+        todo = [(1, 128, 192), (2, 128, 192)]
+    else:
+        aot.export_serving("2", tree, 128, 192, path, device="cuda")
+        todo = [(1, 128, 192)]
+    sm = aot.load_serving(path)
+    assert sm.meta["compute_dtype"] == "bfloat16"
+    for bhw in todo:
+        a, b = (torch.rand((*bhw, 3), generator=gen, device="cuda")
+                for _ in range(2))
+        first, second = sm(a, b), sm(a, b)
+        assert torch.isfinite(first).all()
+        assert torch.equal(first, second)
+
+
 def test_cli_bench_on_card_counts_its_launches(gen, capsys):
     """``cli bench --model c`` at 192x256 on the card: one correlation
     forward launch on bf16 features per forward (warm-ups, then repeats
@@ -430,3 +456,166 @@ def test_cli_bench_on_card_counts_its_launches(gen, capsys):
     assert out["ms_per_pair"] > 0
     if out["device"] in benchlib.DEVICE_PEAKS:
         assert out["floor_ms_analytic"] > 0 and 0 < out["mfu"] < 1
+
+
+def test_bf16_cli_test_is_repeatable_on_card(gen, tmp_path, capsys):
+    """Two bf16 ``cli test --model 2`` runs on the card write
+    bitwise-equal ``.flo`` files with no flag set by the caller:
+    ``f32_policy`` picks cuDNN's deterministic algorithms under the bf16
+    policy too."""
+    import os
+
+    import numpy as np
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    _, ckpt = _flownet2_npz(tmp_path)
+    samples = os.path.join(os.path.dirname(__file__), "..", "data",
+                           "samples")
+    before = torch.backends.cudnn.deterministic
+    flows = []
+    for run in range(2):
+        out = tmp_path / f"run{run}"
+        assert cli.main(["test", "--model", "2", "--device", "cuda",
+                         "--compute_dtype", "bfloat16", "--ckpt", str(ckpt),
+                         "--no_image", "--out", str(out),
+                         "--input_a", os.path.join(samples, "0img0.ppm"),
+                         "--input_b", os.path.join(samples, "0img1.ppm")]) == 0
+        flows.append(flowlib.read_flow(out / "0img0_flow.flo"))
+    assert np.isfinite(flows[0]).all()
+    assert np.array_equal(flows[0], flows[1])
+    assert torch.backends.cudnn.deterministic == before
+
+
+def _train_batch(n, h, w, seed=0):
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.data.loader import SyntheticFlowDataset
+
+    ds = SyntheticFlowDataset(size=n, height=h, width=w, seed=seed)
+    return {k: torch.from_numpy(np.stack([ds[i][k] for i in range(n)]))
+            .cuda() for k in ("image_a", "image_b", "flow")}
+
+
+def _trainer(tmp_path, name, **kw):
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+
+    base = dict(model="c", schedule="short", log_dir=str(tmp_path / name),
+                device="cuda", tensorboard=False, checkpoint_every=0,
+                augment=False)
+    base.update(kw)
+    return Trainer(TrainConfig(**base))
+
+
+@pytest.mark.parametrize("model,dtype", [("c", "float32"),
+                                         ("c", "bfloat16"),
+                                         ("css", "bfloat16")])
+def test_remat_step_is_bitwise_the_step_on_card(gen, tmp_path, model, dtype):
+    """One b8 320x448 train step with remat and one without, from the same
+    seed and batch, on the card: loss and every updated parameter bitwise
+    equal, and a lower peak of allocated memory over the forward and
+    backward with remat."""
+    batch = _train_batch(8, 320, 448)
+    out = {}
+    for remat in (False, True):
+        trainer = _trainer(tmp_path, f"r{remat}", model=model,
+                           compute_dtype=dtype, remat=remat)
+        state = trainer.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        peaks, update = [], state.optimizer.step
+
+        def step(*args, **kwargs):
+            # the forward + backward's peak: the update's moments and
+            # temporaries are parameter-sized either way
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            return update(*args, **kwargs)
+
+        state.optimizer.step = step
+        loss = trainer.train_step(state, batch)["loss"]
+        out[remat] = (loss, [p.detach().clone()
+                             for p in state.model.parameters()], peaks[0])
+        del trainer, state
+    assert torch.isfinite(out[False][0])
+    assert torch.equal(out[True][0], out[False][0])
+    for got, want in zip(out[True][1], out[False][1]):
+        assert torch.equal(got, want)
+    assert out[True][2] < out[False][2], (out[True][2], out[False][2])
+
+
+def test_bf16_train_steps_are_repeatable_on_card(gen, tmp_path):
+    """Two bf16 FlowNetC runs of two augmented steps from the same seed and
+    batches are bitwise equal, with no flag set by the caller."""
+    from flownet2_tf_tpu_torch.data import dataset_configs
+
+    pre = dict(dataset_configs.FLYING_CHAIRS_DATASET_CONFIG["PREPROCESS"])
+    pre["crop_height"], pre["crop_width"] = 128, 192
+    batches = [_train_batch(4, 160, 224, seed=s) for s in range(2)]
+    params = []
+    for run in range(2):
+        trainer = _trainer(tmp_path, f"run{run}", augment=True)
+        state = trainer.init_state()
+        for batch in batches:
+            trainer.train_step(state, batch, pre)
+        params.append([p.detach().clone() for p in state.model.parameters()])
+    for got, want in zip(*params):
+        assert torch.equal(got, want)
+
+
+def test_cli_train_remat_image_summaries_launch_counts(gen, tmp_path,
+                                                       capsys):
+    """``cli train --remat --image_summary_every 1`` (FlowNetC, bf16, 2
+    steps, threaded prefetch): correlation forward launches 2 per step
+    (forward and recompute) + 1 per summary, backward 1 per step, and four
+    PNG images per summary."""
+    import os
+
+    from flownet2_tf_tpu_torch import cli
+
+    correlation_kernel.reset_launch_counts()
+    assert cli.main(["train", "--model", "c", "--synthetic",
+                     "--synthetic_size", "4", "--synthetic_height", "128",
+                     "--synthetic_width", "192", "--batch_size", "2",
+                     "--schedule", "short", "--log_every", "1",
+                     "--max_steps", "2", "--device", "cuda", "--remat",
+                     "--image_summary_every", "1", "--checkpoint_every",
+                     "0", "--log_dir", str(tmp_path / "run")]) == 0
+    assert dict(correlation_kernel.LAUNCHES_BY_DTYPE) == {
+        "float32": 0, "bfloat16": 2 * 2 + 2}
+    assert dict(correlation_kernel.BWD_LAUNCHES_BY_DTYPE) == {
+        "float32": 0, "bfloat16": 2}
+    events = [f for f in os.listdir(tmp_path / "run") if "tfevents" in f]
+    with open(tmp_path / "run" / events[0], "rb") as f:
+        assert f.read().count(b"\x89PNG\r\n\x1a\n") == 8
+
+
+def test_native_decode_matches_pure_on_the_card_host(gen, tmp_path):
+    """On the card's host the native IO runtime builds, and its
+    TFRecordFlowDataset decode is bitwise the pure path's in both
+    ``raw_uint8`` modes."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.data import loader, tfrecord
+    from flownet2_tf_tpu_torch.runtime import native
+
+    assert native.get_native_io() is not None
+    rng = np.random.RandomState(0)
+    payloads = [tfrecord.build_example({
+        "image_a": rng.randint(0, 256, (32, 48, 3), np.uint8).tobytes(),
+        "image_b": rng.randint(0, 256, (32, 48, 3), np.uint8).tobytes(),
+        "flow": rng.randn(32, 48, 2).astype(np.float32).tobytes()})
+        for _ in range(6)]
+    path = tmp_path / "x.tfrecords"
+    tfrecord.write_records(path, payloads)
+    for raw in (False, True):
+        fast = loader.TFRecordFlowDataset(path, 32, 48, raw_uint8=raw)
+        pure = loader.TFRecordFlowDataset(path, 32, 48, use_native=False,
+                                          raw_uint8=raw)
+        assert fast.native and len(fast) == len(pure) == 6
+        got = fast.fetch_batch(range(6))
+        want = pure.fetch_batch(range(6))
+        for k in got:
+            assert got[k].dtype == want[k].dtype
+            assert got[k].tobytes() == want[k].tobytes(), k

@@ -32,7 +32,7 @@ def jax_shapes(name):
 
 @pytest.mark.parametrize("name", MODEL_NAMES)
 def test_param_keys_and_shapes_match_jax(name):
-    module = get_model(name).build()
+    module = get_model(name).build("cpu")
     assert warmstart.jax_param_shapes(module) == jax_shapes(name)
 
 
@@ -105,7 +105,7 @@ def _tree(module, seed=0):
 
 
 def test_load_raises_on_missing_key():
-    module = get_model("s").build()
+    module = get_model("s").build("cpu")
     flat = warmstart.flatten(_tree(module))
     del flat["conv3/biases"]
     with pytest.raises(ValueError, match="missing.*conv3/biases"):
@@ -113,7 +113,7 @@ def test_load_raises_on_missing_key():
 
 
 def test_load_raises_on_extra_key():
-    module = get_model("s").build()
+    module = get_model("s").build("cpu")
     flat = warmstart.flatten(_tree(module))
     flat["conv9/weights"] = np.zeros((3, 3, 1, 1), np.float32)
     with pytest.raises(ValueError, match="extra.*conv9/weights"):
@@ -121,7 +121,7 @@ def test_load_raises_on_extra_key():
 
 
 def test_load_raises_on_shape_mismatch():
-    module = get_model("s").build()
+    module = get_model("s").build("cpu")
     flat = warmstart.flatten(_tree(module))
     flat["conv2/weights"] = np.zeros((5, 5, 64, 64), np.float32)
     with pytest.raises(ValueError, match="shape mismatch at conv2/weights"):
@@ -129,7 +129,7 @@ def test_load_raises_on_shape_mismatch():
 
 
 def test_npz_round_trip(tmp_path):
-    module = get_model("c").build()
+    module = get_model("c").build("cpu")
     tree = _tree(module, seed=3)
     flat = warmstart.flatten(tree)
     path = tmp_path / "c.npz"

@@ -499,7 +499,7 @@ def test_augment_batch_chairs_spec_and_identity(rng):
 def test_msra_init_distribution():
     """JAX's init: std sqrt(2/fan_in) x a normal truncated to +-2 (whose
     own std is 0.8796), zero biases; seeded."""
-    model = common.msra_init_(get_model("s").build(),
+    model = common.msra_init_(get_model("s").build("cpu"),
                               torch.Generator().manual_seed(0))
     w = model.conv6_1.weights.detach().numpy()  # 3x3, 1024 -> 1024
     std = math.sqrt(2.0 / (3 * 3 * 1024))
@@ -508,10 +508,10 @@ def test_msra_init_distribution():
     assert abs(w.mean()) < 0.01 * std
     assert all(float(m.biases.abs().max()) == 0.0
                for m in model.modules() if isinstance(m, common.Conv))
-    again = common.msra_init_(get_model("s").build(),
+    again = common.msra_init_(get_model("s").build("cpu"),
                               torch.Generator().manual_seed(0))
     assert torch.equal(again.conv1.weights, model.conv1.weights)
-    other = common.msra_init_(get_model("s").build(),
+    other = common.msra_init_(get_model("s").build("cpu"),
                               torch.Generator().manual_seed(1))
     assert not torch.equal(other.conv1.weights, model.conv1.weights)
 
