@@ -72,6 +72,25 @@ weights:
   equal, with no cuDNN flag set here. ``python3 chip_smoke.py
   --phase14`` runs phases 0 and 14 alone on their own inputs and prints
   no result line.
+* phase 15, data parallelism and spatial tiling: (a) ``cli train --model
+  c --multihost`` (bf16 b8 320x448, 3 steps) at world size 1 on NCCL in a
+  child process, its checkpoint bitwise the run without ``--multihost``;
+  (b) two gloo ranks on the card (FlowNetC f32, b4 shards of one b8
+  batch), bitwise equal to each other and within a stated tolerance of
+  one process on the b8 batch; (c) ``cli test --model 2 --spatial_tiles
+  2`` at 448x1024 in f32 and bf16 at overlap 64 (real bands) and 128
+  (each window the padded frame), against the CPU's spatial flow and the
+  untiled flows, tiled against untiled ms/pair; (d) ``cli export --aot
+  --spatial_tiles 2`` of FlowNet2 f32 served in a fresh process against
+  (c)'s flow; (e) the warp and resize gradients and two 3-step bf16
+  FlowNetCS runs with nothing frozen bitwise repeatable, and the
+  repair's price on the FlowNetCSS step. ``--phase15`` runs phases 0 and
+  15 alone.
+
+Every child process (phase 12's and phase 15's workers, the DDP ranks,
+``nvidia-smi``, the compilers) starts in its own session with its output
+in a file, has a hard timeout and has its process group killed when it
+ends; before the last line the script checks that none is left.
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after, the bf16 paths' by the dtype of the features the kernels took.
@@ -162,8 +181,8 @@ def log(msg):
     print(msg, flush=True)
 
 
-# correlation launches over every path run (phases 2, 5, 7, 9, 10, 11, 12,
-# 13), by direction and input dtype
+# correlation launches over every path run (phases 2, 5, 7, 9-15), by
+# direction and input dtype
 PATH_LAUNCHES = {"fwd": {"float32": 0, "bfloat16": 0},
                  "bwd": {"float32": 0, "bfloat16": 0}}
 
@@ -288,11 +307,13 @@ def phase0_device_and_build():
 
     from flownet2_tf_tpu_torch.ops.cuda import _build, correlation_kernel
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+    from flownet2_tf_tpu_torch.utils import procs
+
+    rc, smi = procs.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                         "--format=csv,noheader"], timeout=60)
+    if rc != 0:
+        raise AssertionError(f"nvidia-smi failed ({rc}): {smi}")
+    smi = smi.strip()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
@@ -1243,6 +1264,11 @@ def serve_worker(spec_path):
         spec = json.load(f)
     if spec.get("threads"):
         torch.set_num_threads(spec["threads"])
+    if spec.get("wait_for"):
+        # started ahead: the card ready, then wait for the artifact
+        if torch.cuda.is_available():
+            torch.cuda.init()
+        _wait_for_file(spec["wait_for"])
     ck.reset_launch_counts()
     calls, results = 0, []
     for task in spec["tasks"]:
@@ -1291,8 +1317,10 @@ def serve_worker(spec_path):
                 res["same"] = bool(torch.equal(again, flow))
                 res["spread_px"] = float(
                     torch.sqrt(((again - flow) ** 2).sum(-1)).mean())
-                res.update(timed(lambda: sm(a, b), 1))
-                calls += 14
+                calls += 1
+                if task.get("timed", True):
+                    res.update(timed(lambda: sm(a, b), 1))
+                    calls += 13
         elif task["kind"] == "bundle":
             res["shapes"] = []
             for bhw in task["shapes"]:
@@ -1328,20 +1356,16 @@ def serve_worker(spec_path):
     return 0
 
 
-def _start_worker(tmp, name, tasks, threads=None):
-    """Start a fresh ``serve_worker`` process on ``tasks``."""
+def _start_worker(tmp, name, tasks, threads=None, wait_for=None):
+    """Start a fresh ``serve_worker`` process on ``tasks`` (once the file
+    ``wait_for``, if given, exists)."""
     spec = os.path.join(tmp, f"serve_{name}.json")
     result = os.path.join(tmp, f"serve_{name}_result.json")
     with open(spec, "w") as f:
-        json.dump({"tasks": tasks, "result": result, "threads": threads}, f)
+        json.dump({"tasks": tasks, "result": result, "threads": threads,
+                   "wait_for": wait_for}, f)
     log_path = os.path.join(tmp, f"serve_{name}.log")
-    with open(log_path, "w") as log_file:
-        proc = subprocess.Popen(
-            [sys.executable, "-c",
-             "import sys, chip_smoke; sys.exit(chip_smoke.serve_worker("
-             "sys.argv[1]))", spec],
-            cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT,
-            env=dict(os.environ, PYTHONPATH=ROOT))
+    proc = _start_child("serve_worker", spec, log_path)
     return {"name": name, "proc": proc, "result": result, "log": log_path,
             "t0": time.perf_counter()}
 
@@ -1351,18 +1375,10 @@ def _finish_worker(worker, dtype):
     the correlation forward exactly once per served call on ``dtype``
     features (none for a CPU artifact); add its launches to
     PATH_LAUNCHES. Returns its results, call count and wall time."""
-    name, proc = worker["name"], worker["proc"]
-    try:
-        rc = proc.wait(timeout=900)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    name = worker["name"]
+    _wait_child(worker["proc"], worker["log"], f"serving process {name}",
+                timeout=900)
     wall = time.perf_counter() - worker["t0"]
-    if rc != 0:
-        with open(worker["log"]) as f:
-            raise AssertionError(f"phase 12 {name}: the serving process "
-                                 f"failed ({rc}):\n{f.read()[-4000:]}")
     with open(worker["result"]) as f:
         out = json.load(f)
     if out["imported"]:
@@ -2014,6 +2030,839 @@ def phase14_input_path(tmp, chairs, ckpt, crc_py_mb_s=None):
         raise AssertionError("phase 14 overran its time budget")
 
 
+
+# phase 15: data parallelism and spatial tiling. Its wall-time budget (s),
+# the steps of each DDP run, a child process's hard limit (s), and the
+# spatial cell: FlowNet2 at 448x1024 in 2 bands, at overlap 64 (windows of
+# 384 rows at offsets 0 and 128) and at the default 128 (each window the
+# whole frame, edge-padded to 512 rows)
+PHASE15_BUDGET_S = 150.0
+P15_STEPS = 3
+# (a)'s train_step_ms under DDP and without: f32 (device-bound) and bf16
+P15_STEP_DTYPES = ("float32", "bfloat16")
+CHILD_TIMEOUT_S = 300
+SPATIAL_TILES, SPATIAL_OVERLAPS = 2, (64, 128)
+# two gloo ranks on b4 shards against one process on the b8 batch (f32,
+# the same gradient summed in another order): each logged metric to this
+# rtol, each leaf's update from the shared start to this relative L2
+# (Adam's first steps move a weight by about the learning rate whatever
+# its gradient's size, so a near-zero gradient summed in another order
+# may move it the other way)
+DDP_RTOL, DDP_UPDATE_L2 = 1e-4, 1e-3
+# the bf16 tiled flow at overlap 128 against the bf16 untiled flow of the
+# same padded frame (batch 2 against 1: cuDNN may pick other algorithms
+# and round in other places): mean EPE over mean |flow|
+SPATIAL_BF16_REL_EPE = 1e-2
+# kernel names (lower case) of the reads and their backwards in (e)'s
+# profile: gathers, index and index_put, scatters, the index sort
+READ_KERNELS = ("index", "gather", "scatter", "sort")
+
+# every child process this script starts; before the last line no
+# process may be left in their sessions or among this process's children
+CHILDREN = []
+
+
+def _start_child(func, spec, log_path, env=None):
+    """Start ``chip_smoke.<func>(spec)`` in a fresh process: its own
+    session, its output in ``log_path``, recorded in CHILDREN."""
+    from flownet2_tf_tpu_torch.utils import procs
+
+    proc = procs.start(
+        [sys.executable, "-c", f"import sys, chip_smoke; "
+         f"sys.exit(chip_smoke.{func}(sys.argv[1]))", spec],
+        log_path, env=dict(env or os.environ, PYTHONPATH=ROOT), cwd=ROOT)
+    CHILDREN.append(proc)
+    return proc
+
+
+def _wait_child(proc, log_path, what, timeout=CHILD_TIMEOUT_S):
+    """Wait for a child at most ``timeout`` s, kill its process group
+    whatever happens, and raise with its output's tail unless it exited
+    0."""
+    from flownet2_tf_tpu_torch.utils import procs
+
+    try:
+        rc = procs.wait(proc, timeout)
+    except subprocess.TimeoutExpired:
+        rc = f"killed after {timeout} s"
+    if rc != 0:
+        with open(log_path, errors="replace") as f:
+            raise AssertionError(f"{what}: the child process failed ({rc}):"
+                                 f"\n{f.read()[-4000:]}")
+
+
+def _check_no_child_left():
+    """Raise if a child this script started is unreaped, or if any process
+    is still in one of their sessions or is a child of this process."""
+    me = os.getpid()
+    sessions = {p.pid for p in CHILDREN}
+    left = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == me:
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        fields = stat[stat.rindex(")") + 2:].split()
+        if int(fields[1]) == me or int(fields[3]) in sessions:
+            left.append(stat[:stat.rindex(")") + 1])
+    unreaped = [p.pid for p in CHILDREN if p.returncode is None]
+    if left or unreaped:
+        raise AssertionError(f"child processes outlived their phase: "
+                             f"{left}, unreaped {unreaped}")
+    log(f"child processes: {len(CHILDREN)} started, every one exited and "
+        "reaped, none left in their sessions")
+
+
+def _wait_for_file(path, timeout=CHILD_TIMEOUT_S):
+    """Return once ``path`` exists (a parent's go signal to a child it
+    started ahead); raise after ``timeout`` s."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.05)
+
+
+def _go(path):
+    with open(path, "w"):
+        pass
+
+
+_PORTS = set()
+
+
+def _free_port():
+    """A port the OS has free on 127.0.0.1, never one this script handed
+    out before (a child binds its port only once it has started)."""
+    import socket
+
+    while True:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        if port not in _PORTS:
+            _PORTS.add(port)
+            return port
+
+
+def _launch_env(rank, world, port):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")}
+    env.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    return env
+
+
+def train_worker(spec_path):
+    """Phase 15 (a)'s child: once the spec's go file exists, ``cli train``
+    with the spec's arguments, in the launcher environment it was given;
+    then, in a group joined again on the spec's second port,
+    ``train_step_ms`` of FlowNetC under DDP at each dtype of
+    P15_STEP_DTYPES. Writes the log records, the step times and the
+    correlation launch counts of both to the spec's result file."""
+    import torch
+
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.parallel import mesh
+    from flownet2_tf_tpu_torch.tools import benchlib
+
+    def launches():
+        torch.cuda.synchronize()
+        counts = {"fwd": dict(ck.LAUNCHES_BY_DTYPE),
+                  "bwd": dict(ck.BWD_LAUNCHES_BY_DTYPE)}
+        ck.reset_launch_counts()
+        return counts
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.cuda.init()
+    _wait_for_file(spec["go"])
+    ck.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["train", *spec["argv"]])
+    out = {"rc": rc, "launches": launches(), "records": [
+        json.loads(line) for line in buf.getvalue().splitlines()
+        if line.startswith("{")]}
+    os.environ["MASTER_PORT"] = str(spec["step_ms_port"])
+    mesh.maybe_initialize_distributed(True, device="cuda")
+    try:
+        out["step_ms"] = {dtype: benchlib.train_step_ms(
+            "c", TRAIN_BATCH, TRAIN_H, TRAIN_W, dtype, iters=STEP_ITERS,
+            device="cuda")[0] for dtype in P15_STEP_DTYPES}
+    finally:
+        mesh.shutdown_distributed()
+    out["step_ms_launches"] = launches()
+    with open(spec["result"], "w") as f:
+        json.dump(out, f)
+    return rc
+
+
+def _p15_trainer(log_dir):
+    """Phase 15 (b)'s trainer: FlowNetC f32, seeded init, no
+    augmentation."""
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+
+    return Trainer(TrainConfig(
+        model="c", schedule="short", log_dir=log_dir, device="cuda",
+        compute_dtype="float32", augment=False, tensorboard=False,
+        checkpoint_every=0))
+
+
+def _p15_batch():
+    """One seeded global b8 batch at the FlyingChairs crop."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 15)
+    shape = (TRAIN_BATCH, TRAIN_H, TRAIN_W)
+    return {"image_a": rng.rand(*shape, 3).astype(np.float32),
+            "image_b": rng.rand(*shape, 3).astype(np.float32),
+            "flow": (rng.rand(*shape, 2) * 8 - 4).astype(np.float32)}
+
+
+def _timed_steps(trainer, state, batch, steps):
+    """``steps`` train steps: (metrics of each as floats, host ms of each
+    from a synchronize to the metrics' read)."""
+    import torch
+
+    metrics, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in trainer.train_step(state,
+                                                        batch).items()}
+        times.append((time.perf_counter() - t0) * 1000.0)
+        metrics.append(m)
+    return metrics, times
+
+
+def ddp_worker(spec_path):
+    """Phase 15 (b)'s child: one rank of a gloo group on ``cuda:0``; once
+    the spec's go file exists, trains its b4 shard of ``_p15_batch`` for
+    P15_STEPS steps and writes its metrics, step times, launch counts and
+    parameters."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.parallel import mesh
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh.maybe_initialize_distributed(True, device="cuda", backend="gloo",
+                                      timeout_s=spec["timeout_s"])
+    try:
+        rank, world = mesh.process_index(), mesh.process_count()
+        trainer = _p15_trainer(spec["log_dir"])
+        state = trainer.init_state()
+        local = TRAIN_BATCH // world
+        shard = {k: v[rank * local:(rank + 1) * local]
+                 for k, v in _p15_batch().items()}
+        _wait_for_file(spec["go"])
+        ck.reset_launch_counts()
+        metrics, times = _timed_steps(trainer, state, shard, P15_STEPS)
+        np.savez(f"{spec['result']}.{rank}.npz", **warmstart.flatten(
+            warmstart.to_jax_params(state.model)))
+        with open(f"{spec['result']}.{rank}.json", "w") as f:
+            json.dump({"rank": rank, "world": world,
+                       "ddp": state.ddp is not None, "metrics": metrics,
+                       "step_ms": times,
+                       "launches": {"fwd": dict(ck.LAUNCHES_BY_DTYPE),
+                                    "bwd": dict(ck.BWD_LAUNCHES_BY_DTYPE)}},
+                      f)
+    finally:
+        mesh.shutdown_distributed()
+    return 0
+
+
+def export_worker(spec_path):
+    """Phase 15 (d)'s first child: ``cli export --aot`` with the spec's
+    arguments; writes the metadata and the export's wall time."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    meta, wall = _cli_export(spec["argv"])
+    with open(spec["result"], "w") as f:
+        json.dump({"meta": meta, "wall_s": wall}, f)
+    return 0
+
+
+def _add_launches(counts):
+    for way, by_dtype in counts.items():
+        for dtype, n in by_dtype.items():
+            PATH_LAUNCHES[way][dtype] += n
+
+
+def _checkpoint_params(log_dir, step):
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training.warmstart import PARAMS_FILE
+
+    with np.load(os.path.join(log_dir, "checkpoints", str(step),
+                              PARAMS_FILE)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _bitwise_equal(a, b):
+    import numpy as np
+
+    return a.keys() == b.keys() and all(np.array_equal(v, b[k])
+                                        for k, v in a.items())
+
+
+def _step_ms(records):
+    """ms per step of logged steps 2 on (``examples_per_sec`` of each
+    log line: the first step holds the warm-up)."""
+    return [TRAIN_BATCH * 1000.0 / r["examples_per_sec"] for r in records[1:]]
+
+
+P15A_ARGV = ["--model", "c", "--synthetic", "--synthetic_height",
+             str(TRAIN_H), "--synthetic_width", str(TRAIN_W), "--batch_size",
+             str(TRAIN_BATCH), "--max_steps", str(P15_STEPS), "--schedule",
+             "short", "--log_every", "1", "--checkpoint_every", "0",
+             "--device", "cuda"]
+
+
+def _p15a_start(tmp):
+    """(a) start ``cli train --model c --multihost``'s child at world size
+    1; it runs once :func:`_p15a_finish` says go."""
+    ddp_dir = os.path.join(tmp, "p15_ddp1")
+    spec = os.path.join(tmp, "p15_ddp1.json")
+    with open(spec, "w") as f:
+        json.dump({"argv": [*P15A_ARGV, "--multihost", "--log_dir", ddp_dir],
+                   "result": spec + ".out", "step_ms_port": _free_port(),
+                   "go": spec + ".go"}, f)
+    log_path = os.path.join(tmp, "p15_ddp1.log")
+    proc = _start_child("train_worker", spec, log_path,
+                        _launch_env(0, 1, _free_port()))
+    return proc, spec, log_path, ddp_dir
+
+
+def _p15a_finish(tmp, started):
+    """(a) the run without ``--multihost`` and ``train_step_ms`` here, then
+    the child's run under DDP, and the two compared."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.tools import benchlib
+
+    proc, spec, log_path, ddp_dir = started
+    plain_dir = os.path.join(tmp, "p15_plain")
+    correlation_kernel.reset_launch_counts()
+    plain = _train([*P15A_ARGV, "--log_dir", plain_dir])
+    _check_counts(path_counts(), P15_STEPS, P15_STEPS, "bfloat16",
+                  "phase 15 (a) plain run")
+    plain_step = {}
+    for dtype in P15_STEP_DTYPES:
+        correlation_kernel.reset_launch_counts()
+        plain_step[dtype] = benchlib.train_step_ms(
+            "c", TRAIN_BATCH, TRAIN_H, TRAIN_W, dtype, iters=STEP_ITERS,
+            device="cuda")[0]
+        n = 2 * (2 + STEP_ITERS)
+        _check_counts(path_counts(), n, n, dtype,
+                      f"phase 15 (a) train_step_ms {dtype}")
+    t0 = time.perf_counter()
+    _go(spec + ".go")
+    _wait_child(proc, log_path, "phase 15 (a) cli train --multihost")
+    wall = time.perf_counter() - t0
+    with open(spec + ".out") as f:
+        out = json.load(f)
+    _check_counts(out["launches"], P15_STEPS, P15_STEPS, "bfloat16",
+                  "phase 15 (a) --multihost run")
+    _add_launches(out["launches"])
+    n = 2 * (2 + STEP_ITERS)
+    want = {way: {d: n for d in P15_STEP_DTYPES} for way in ("fwd", "bwd")}
+    if out["step_ms_launches"] != want:
+        raise AssertionError(f"phase 15 (a): train_step_ms under DDP "
+                             f"launched {out['step_ms_launches']}")
+    _add_launches(out["step_ms_launches"])
+    same = _bitwise_equal(_checkpoint_params(plain_dir, P15_STEPS),
+                          _checkpoint_params(ddp_dir, P15_STEPS))
+    same_log = [{k: v for k, v in r.items() if k != "examples_per_sec"}
+                for r in plain] == [
+        {k: v for k, v in r.items() if k != "examples_per_sec"}
+        for r in out["records"]]
+    ms_plain, ms_ddp = _step_ms(plain), _step_ms(out["records"])
+    log(f"phase 15 (a): cli train --model c --multihost (DDP, NCCL, world "
+        f"size 1, bf16 b{TRAIN_BATCH} {TRAIN_H}x{TRAIN_W}, {P15_STEPS} "
+        f"steps) in a child ({wall:.1f} s from its go): correlation launches "
+        f"{out['launches']}; checkpoint bitwise the run without "
+        f"--multihost: {same}; logged metrics equal: {same_log}; step ms "
+        f"(steps 2-{P15_STEPS}) {[round(x, 2) for x in ms_ddp]} against "
+        f"{[round(x, 2) for x in ms_plain]} without "
+        f"({100.0 * (np.mean(ms_ddp) / np.mean(ms_plain) - 1):+.1f}%; the "
+        f"synthetic render feeds them); train_step_ms (one prefetched "
+        f"batch, CUDA events) under DDP against without: " + ", ".join(
+            f"{d} {out['step_ms'][d]:.3f} against {plain_step[d]:.3f} ms "
+            f"({100.0 * (out['step_ms'][d] / plain_step[d] - 1):+.1f}%)"
+            for d in P15_STEP_DTYPES))
+    if not (same and same_log):
+        raise AssertionError("phase 15 (a): the world-size-1 DDP run differs "
+                             "from the plain run")
+
+
+def _p15b_start(tmp):
+    """(b) start two gloo ranks on ``cuda:0``, each on its b4 shard of one
+    b8 batch; they join their group and build their trainers, then step
+    once :func:`_p15b_finish` says go."""
+    spec = os.path.join(tmp, "p15_ranks.json")
+    result = os.path.join(tmp, "p15_rank")
+    with open(spec, "w") as f:
+        json.dump({"log_dir": os.path.join(tmp, "p15_ranks"),
+                   "result": result, "timeout_s": 120,
+                   "go": spec + ".go"}, f)
+    port = _free_port()
+    ranks = [(_start_child("ddp_worker", spec, f"{result}{r}.log",
+                           _launch_env(r, 2, port)), f"{result}{r}.log")
+             for r in range(2)]
+    return ranks, result, spec + ".go"
+
+
+def _p15b_finish(tmp, started):
+    """(b) one process on the b8 batch here, then the two ranks against
+    each other and against it."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    ranks, result, go = started
+    t0 = time.perf_counter()
+    _go(go)
+    trainer = _p15_trainer(os.path.join(tmp, "p15_one"))
+    state = trainer.init_state()
+    start = warmstart.flatten(warmstart.to_jax_params(state.model))
+    correlation_kernel.reset_launch_counts()
+    one, one_ms = _timed_steps(trainer, state, _p15_batch(), P15_STEPS)
+    _check_counts(path_counts(), P15_STEPS, P15_STEPS, "float32",
+                  "phase 15 (b) one process")
+    one_params = warmstart.flatten(warmstart.to_jax_params(state.model))
+    del trainer, state
+    for r, (proc, log_path) in enumerate(ranks):
+        _wait_child(proc, log_path, f"phase 15 (b) rank {r}")
+    wall = time.perf_counter() - t0
+    outs, params = [], []
+    for r in range(2):
+        with open(f"{result}.{r}.json") as f:
+            outs.append(json.load(f))
+        with np.load(f"{result}.{r}.npz") as z:
+            params.append({k: z[k] for k in z.files})
+        _check_counts(outs[r]["launches"], P15_STEPS, P15_STEPS, "float32",
+                      f"phase 15 (b) rank {r}")
+        _add_launches(outs[r]["launches"])
+    same = (outs[0]["metrics"] == outs[1]["metrics"]
+            and _bitwise_equal(params[0], params[1]))
+    worst_metric = max(abs(outs[0]["metrics"][i][k] / v - 1)
+                       for i, m in enumerate(one) for k, v in m.items()
+                       if k != "lr" and v)
+    worst_update = 0.0
+    for k, w0 in start.items():
+        dw = np.asarray(one_params[k], np.float64) - w0
+        dg = np.asarray(params[0][k], np.float64) - w0
+        if np.linalg.norm(dw):
+            worst_update = max(worst_update, float(
+                np.linalg.norm(dg - dw) / np.linalg.norm(dw)))
+    log(f"phase 15 (b): two gloo ranks on cuda:0 (FlowNetC f32, b4 shards "
+        f"of one b8 {TRAIN_H}x{TRAIN_W} batch, {P15_STEPS} steps, {wall:.1f} "
+        f"s from their go): both under DDP: "
+        f"{all(o['ddp'] and o['world'] == 2 for o in outs)}"
+        f"; metrics and every parameter bitwise equal across the ranks: "
+        f"{same}; against one process on b8: worst metric rel. diff "
+        f"{worst_metric:.2e} (rtol {DDP_RTOL}), worst leaf update rel. L2 "
+        f"{worst_update:.2e} (<= {DDP_UPDATE_L2}); step ms rank 0 "
+        f"{[round(x, 2) for x in outs[0]['step_ms']]}, rank 1 "
+        f"{[round(x, 2) for x in outs[1]['step_ms']]}, one process b8 "
+        f"{[round(x, 2) for x in one_ms]} (the first step holds the "
+        "warm-up; gloo carries the gradients through the host; the ranks "
+        "ran beside this one-process run)")
+    if not (same and all(o["ddp"] and o["world"] == 2 for o in outs)):
+        raise AssertionError("phase 15 (b): the ranks differ")
+    if worst_metric > DDP_RTOL or worst_update > DDP_UPDATE_L2:
+        raise AssertionError("phase 15 (b): two ranks are not one process")
+
+
+def _cli_test_spatial(ckpt, paths, out_dir, dtype, overlap):
+    """``cli test --model 2 --spatial_tiles 2`` on the card between a reset
+    and a read of the launch counts; returns (.flo flow, wall s)."""
+    from flownet2_tf_tpu_torch import cli
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    correlation_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["test", "--model", "2", "--device", "cuda",
+                       "--compute_dtype", dtype, "--ckpt", ckpt,
+                       "--input_a", paths[0], "--input_b", paths[1],
+                       "--out", out_dir, "--spatial_tiles",
+                       str(SPATIAL_TILES), "--spatial_overlap",
+                       str(overlap)])
+    wall = time.perf_counter() - t0
+    _check_counts(path_counts(), 1, 0, dtype,
+                  f"phase 15 (c) cli test --spatial_overlap {overlap}")
+    if rc != 0:
+        raise AssertionError(f"cli test --spatial_tiles returned {rc}")
+    stem = os.path.splitext(os.path.basename(paths[0]))[0]
+    return flowlib.read_flow(os.path.join(out_dir, f"{stem}_flow.flo")), wall
+
+
+def _p15c_pair(tmp):
+    """(c) a rendered 448x1024 pair: (its PNG paths, the pair as read from
+    them in an .npz)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training import infer
+    from flownet2_tf_tpu_torch.utils.image_io import write_image
+
+    h, w = SERVE_HW
+    a_u8, b_u8, _ = _render_pair(np.random.RandomState(SEED + 15), h, w)
+    paths = [os.path.join(tmp, f"p15_{k}.png") for k in ("a", "b")]
+    write_image(a_u8, paths[0])
+    write_image(b_u8, paths[1])
+    a, b = infer.load_image_pair(*paths)
+    pair = os.path.join(tmp, "p15_pair.npz")
+    np.savez(pair, a=a[None], b=b[None])
+    return paths, pair
+
+
+def _p15c_spatial(tmp, ckpt, tree, paths):
+    """(c) ``cli test --model 2 --spatial_tiles 2`` at 448x1024, f32 and
+    bf16, at overlap 64 and 128; returns the f32 overlap-64 flow."""
+    import numpy as np
+    import torch
+
+    from flownet2_tf_tpu_torch.models.common import compute_dtype_of
+    from flownet2_tf_tpu_torch.parallel import spatial
+    from flownet2_tf_tpu_torch.training import infer
+
+    h, w = SERVE_HW
+    a, b = infer.load_image_pair(*paths)
+    # the frame the bands tile: edge-padded to 512 rows
+    _, padded_h = spatial._tile_plan(h, SPATIAL_TILES, 0)
+    rows = torch.arange(padded_h, device="cuda").clamp(max=h - 1)
+    frame = [torch.from_numpy(x[None]).to("cuda") for x in (a, b)]
+    flows, timed = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cd = compute_dtype_of(dtype)
+        model = infer.inference_model("2", tree, torch.device("cuda"), cd)
+        untiled = infer.forward_flow(model, *frame, cd)[0].cpu().numpy()
+        padded = infer.forward_flow(model, *(x[:, rows] for x in frame),
+                                    cd)[0, :h].cpu().numpy()
+        # ms/pair: the model on the two bands against the whole frame
+        tiles = [spatial.extract_tiles(x, SPATIAL_TILES,
+                                       min(SPATIAL_OVERLAPS))[0]
+                 for x in frame]
+        with torch.inference_mode():
+            timed[dtype] = [statistics.median(cuda_time_ms(
+                lambda: spatial.forward_tiles(model, *t, cd), runs=10))
+                for t in (tiles, frame)]
+        del model
+        for overlap in SPATIAL_OVERLAPS:
+            flow, wall = _cli_test_spatial(
+                ckpt, paths, os.path.join(tmp, f"p15_{dtype}_{overlap}"),
+                dtype, overlap)
+            flows[dtype, overlap] = flow
+            if flow.shape != (h, w, 2) or not np.isfinite(flow).all():
+                raise AssertionError(f"phase 15 (c): bad flow {flow.shape}")
+            scale = float(np.abs(padded).mean())
+            log(f"phase 15 (c): cli test --spatial_tiles {SPATIAL_TILES} "
+                f"--spatial_overlap {overlap} {dtype} at {h}x{w} ({wall:.2f} "
+                f"s): 1 correlation launch; mean EPE to the untiled flow "
+                f"{_epe(flow, untiled):.4f} px (mean |flow| "
+                f"{float(np.abs(untiled).mean()):.2f}), to the untiled flow "
+                f"of the padded frame {_epe(flow, padded):.3e} px")
+            if overlap == max(SPATIAL_OVERLAPS):
+                # each window is the padded frame: the untiled flow of it
+                if dtype == "float32":
+                    np.testing.assert_allclose(flow, padded, rtol=FLOW_RTOL,
+                                               atol=FLOW_ATOL)
+                elif _epe(flow, padded) > SPATIAL_BF16_REL_EPE * scale:
+                    raise AssertionError("phase 15 (c): bf16 tiled flow off "
+                                         "the padded frame's")
+
+    for dtype, (tiled, whole) in timed.items():
+        log(f"phase 15 (c): FlowNet2 {dtype} forward on {SPATIAL_TILES} bands "
+            f"of {tiles[0].shape[1]} rows (overlap {min(SPATIAL_OVERLAPS)}) "
+            f"{tiled:.3f} ms/pair against the {h}x{w} frame {whole:.3f} "
+            f"({tiled / whole:.2f}x; CUDA events, median of 10)")
+    return flows["float32", min(SPATIAL_OVERLAPS)]
+
+
+def spatial_cpu_worker(spec_path):
+    """Phase 15 (c)'s CPU reference, in a child so that its
+    ``f32_policy`` (process-wide flags) never meets the card's work: the
+    port's spatial flow of the pair on the CPU (f32, overlap 64)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.parallel import spatial
+    from flownet2_tf_tpu_torch.training.warmstart import load_params_tree
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with np.load(spec["pair"]) as z:
+        a, b = z["a"][0], z["b"][0]
+    t0 = time.perf_counter()
+    flow = spatial.infer_flow_spatial(
+        "2", load_params_tree(spec["ckpt"]), a, b, n_tiles=SPATIAL_TILES,
+        overlap=min(SPATIAL_OVERLAPS), device="cpu")
+    np.save(spec["flow_out"], flow)
+    with open(spec["result"], "w") as f:
+        json.dump({"wall_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def _p15c_cpu_start(tmp, ckpt, pair):
+    """(c) start the CPU reference's child."""
+    spec = os.path.join(tmp, "p15_cpu.json")
+    with open(spec, "w") as f:
+        json.dump({"ckpt": ckpt, "pair": pair, "result": spec + ".out",
+                   "flow_out": os.path.join(tmp, "p15_cpu_flow.npy")}, f)
+    log_path = os.path.join(tmp, "p15_cpu.log")
+    return _start_child("spatial_cpu_worker", spec, log_path), spec, log_path
+
+
+def _p15c_cpu_check(started, card):
+    """(c) the card's f32 overlap-64 flow against the CPU reference."""
+    import numpy as np
+
+    proc, spec, log_path = started
+    _wait_child(proc, log_path, "phase 15 (c) CPU reference")
+    with open(spec) as f:
+        cpu = np.load(json.load(f)["flow_out"])
+    with open(spec + ".out") as f:
+        wall = json.load(f)["wall_s"]
+    log(f"phase 15 (c): f32 overlap {min(SPATIAL_OVERLAPS)} card against "
+        f"the CPU spatial flow ({wall:.1f} s on the CPU in a child, beside "
+        f"(b) and (e)): mean EPE {_epe(card, cpu):.3e} px, max |diff| "
+        f"{float(np.abs(card - cpu).max()):.3e}")
+    np.testing.assert_allclose(card, cpu, rtol=FLOW_RTOL, atol=FLOW_ATOL)
+
+
+def _p15d_export(tmp, ckpt):
+    """(d) start ``cli export --aot --spatial_tiles 2 --spatial_overlap
+    64`` of FlowNet2 f32 at 448x1024 in a child process."""
+    h, w = SERVE_HW
+    path = os.path.join(tmp, "p15_spatial.flowpak")
+    spec = os.path.join(tmp, "p15_export.json")
+    with open(spec, "w") as f:
+        json.dump({"result": spec + ".out", "argv": [
+            "--model", "2", "--ckpt", ckpt, "--out", path, "--height",
+            str(h), "--width", str(w), "--compute_dtype", "float32",
+            "--warp_mode", "full", "--spatial_tiles", str(SPATIAL_TILES),
+            "--spatial_overlap", str(min(SPATIAL_OVERLAPS)), "--device",
+            "cuda"]}, f)
+    log_path = os.path.join(tmp, "p15_export.log")
+    return _start_child("export_worker", spec, log_path), spec, log_path, path
+
+
+def _p15d_serve(tmp, started, pair):
+    """(d) start the fresh process that serves the artifact (two calls,
+    untimed) once the export's result file exists."""
+    _, spec, _, path = started
+    flow_out = os.path.join(tmp, "p15_served.npy")
+    worker = _start_worker(tmp, "p15_spatial", [{
+        "kind": "single", "artifact": path, "pair": pair,
+        "flow_out": flow_out, "timed": False}], wait_for=spec + ".out")
+    return worker, flow_out
+
+
+def _p15d_check_export(started):
+    """(d) wait for the export's child and check its metadata."""
+    proc, spec, log_path, path = started
+    _wait_child(proc, log_path, "phase 15 (d) cli export --aot")
+    with open(spec + ".out") as f:
+        out = json.load(f)
+    meta = out["meta"]
+    if (meta["spatial_tiles"], meta["spatial_overlap"], meta["batch"]) != (
+            SPATIAL_TILES, min(SPATIAL_OVERLAPS), 1):
+        raise AssertionError(f"phase 15 (d): metadata {meta}")
+    h, w = SERVE_HW
+    log(f"phase 15 (d): cli export --aot --spatial_tiles {SPATIAL_TILES} "
+        f"--spatial_overlap {min(SPATIAL_OVERLAPS)} FlowNet2 f32 {h}x{w} in "
+        f"a child: {out['wall_s']:.2f} s, {os.path.getsize(path) / 1e6:.1f} "
+        "MB")
+
+
+def _p15d_finish(started, library_flow):
+    import numpy as np
+
+    worker, flow_out = started
+    results, calls, wall = _finish_worker(worker, "float32")
+    served = np.load(flow_out)[0]
+    epe = _epe(served, library_flow)
+    log(f"phase 15 (d): the spatial artifact served in a fresh process "
+        f"({wall:.1f} s): load {results[0]['load_s']:.2f} s, {calls} calls, "
+        f"one correlation launch each; two served calls bitwise equal: "
+        f"{results[0]['same']}; mean EPE to (c)'s library flow {epe:.3e} px "
+        f"(<= {SERVE_EPE})")
+    if not results[0]["same"] or epe > SERVE_EPE:
+        raise AssertionError("phase 15 (d): the spatial artifact is off")
+
+
+@contextlib.contextmanager
+def _atomic_reads():
+    """The warp and resize reads as they were before the repair, on every
+    device: ``gather`` and ``index_select``, whose backwards
+    (``scatter_add``, ``index_add_``) sum with atomics on CUDA."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops import resize, sampling
+
+    real = sampling._read, resize._take
+
+    def read(flat, idx):
+        table = flat if flat.ndim == 3 else flat.expand(idx.shape[0], -1, -1)
+        return torch.gather(table, 1,
+                            idx[..., None].expand(-1, -1, flat.shape[-1]))
+
+    sampling._read = read
+    resize._take = lambda t, dim, idx: t.index_select(dim, idx)
+    try:
+        yield
+    finally:
+        sampling._read, resize._take = real
+
+
+def _p15e_repair(tmp):
+    """(e) the warp and resize backwards sum in a fixed order: their
+    gradients twice on the card, and two 3-step bf16 FlowNetCS runs with
+    nothing frozen (gradients through FlowNetC's resized flow and the
+    warp), bitwise."""
+    import torch
+
+    from flownet2_tf_tpu_torch.data.loader import (
+        BatchLoader,
+        SyntheticFlowDataset,
+    )
+    from flownet2_tf_tpu_torch.ops import resize, sampling
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    img = torch.rand(2, 96, 128, 8, device="cuda", generator=gen)
+    # every sample lands in a 6x6 corner: thousands of them per pixel
+    x, y = (torch.rand(2, 320, 448, device="cuda", generator=gen) * 5
+            for _ in range(2))
+    small = torch.rand(8, 40, 56, 2, device="cuda", generator=gen)
+
+    def grads():
+        i = img.clone().requires_grad_()
+        s = small.clone().requires_grad_()
+        (sampling.bilinear_gather(i, x, y).square().sum()
+         + resize.resize_bilinear_tf1(s, TRAIN_H, TRAIN_W).square().sum()
+         ).backward()
+        return i.grad, s.grad
+
+    (g1, r1), (g2, r2) = grads(), grads()
+    ops_same = torch.equal(g1, g2) and torch.equal(r1, r2)
+    with _atomic_reads():
+        (g1, r1), (g2, r2) = grads(), grads()
+    before = torch.equal(g1, g2) and torch.equal(r1, r2)
+
+    # the price: device time of one FlowNetCSS bf16 b8 step with nothing
+    # frozen (torch.profiler, all kernels), in turns
+    trainer = Trainer(TrainConfig(
+        model="css", frozen=(), schedule="short",
+        log_dir=os.path.join(tmp, "p15_css"), device="cuda", augment=False,
+        tensorboard=False, checkpoint_every=0))
+    state = trainer.init_state()
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in _p15_batch().items()}
+    for _ in range(2):
+        trainer.train_step(state, batch)
+    busy = {"port": [], "atomics": []}
+    reads = {"port": [], "atomics": []}
+    for name in ("port", "atomics", "atomics", "port", "port", "atomics"):
+        with _atomic_reads() if name == "atomics" else contextlib.nullcontext():
+            correlation_kernel.reset_launch_counts()
+            kernels = profile_ms(lambda: trainer.train_step(state, batch))
+            _check_counts(path_counts(), 1, 1, "bfloat16",
+                          f"phase 15 (e) profiled CSS step ({name})")
+        busy[name].append(sum(kernels.values()))
+        reads[name].append(sum(
+            ms for k, ms in kernels.items()
+            if any(t in k.lower() for t in READ_KERNELS)))
+    del trainer, state
+
+    params = []
+    for i in range(2):
+        log_dir = os.path.join(tmp, f"p15_cs{i}")
+        trainer = Trainer(TrainConfig(
+            model="cs", frozen=(), schedule="short", log_dir=log_dir,
+            device="cuda", tensorboard=False, checkpoint_every=0,
+            log_every=1))
+        loader = BatchLoader(SyntheticFlowDataset(
+            size=4 * TRAIN_BATCH, height=TRAIN_H, width=TRAIN_W, seed=SEED),
+            batch_size=TRAIN_BATCH)
+        correlation_kernel.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.fit(loader, max_steps=P15_STEPS, preprocess={
+                "crop_height": TRAIN_H, "crop_width": TRAIN_W,
+                "image_a": {}, "image_b": {}})
+        _check_counts(path_counts(), P15_STEPS, P15_STEPS, "bfloat16",
+                      "phase 15 (e) FlowNetCS with nothing frozen")
+        params.append(_checkpoint_params(log_dir, P15_STEPS))
+    same = _bitwise_equal(*params)
+    port, atomics = (statistics.mean(busy[k]) for k in ("port", "atomics"))
+    log(f"phase 15 (e): the gather and resize gradients ({x.numel()} "
+        f"samples into a 6x6 corner, a flow resized 8x) twice bitwise "
+        f"equal: {ops_same} (with the reads before the repair: {before}); "
+        f"FlowNetCSS bf16 b{TRAIN_BATCH} {TRAIN_H}x{TRAIN_W} step with "
+        f"nothing frozen, device ms (torch.profiler, in turns): "
+        f"{[round(v, 3) for v in busy['port']]} against "
+        f"{[round(v, 3) for v in busy['atomics']]} before the repair "
+        f"({100.0 * (port / atomics - 1):+.2f}%), of which index, gather, "
+        f"scatter and sort kernels "
+        f"{[round(v, 3) for v in reads['port']]} against "
+        f"{[round(v, 3) for v in reads['atomics']]}; "
+        f"two {P15_STEPS}-step bf16 FlowNetCS runs with nothing frozen "
+        f"(Trainer.fit, augmented): checkpoints bitwise equal: {same}")
+    if not (ops_same and same):
+        raise AssertionError("phase 15 (e): the warp and resize backwards "
+                             "are not repeatable")
+
+
+def phase15_data_parallel_and_spatial(tmp, ckpt, tree):
+    """Data parallelism and spatial tiling (see the module docstring).
+    The children start first and wait, so that their start-up overlaps
+    (c); while (c) runs the card does only (d)'s export beside it (its
+    tracing is host work). (e)'s device times come from the profiler;
+    (a) runs last, with only (d)'s serving process beside it, whose load
+    is host work. (b)'s ranks train beside its one-process run."""
+    from flownet2_tf_tpu_torch.utils import procs
+
+    t0 = time.perf_counter()
+    paths, pair = _p15c_pair(tmp)
+    first = len(CHILDREN)
+    try:
+        # children started ahead: they import, reach the card and build,
+        # then wait for their go (or, the server, for the artifact)
+        export = _p15d_export(tmp, ckpt)
+        served = _p15d_serve(tmp, export, pair)
+        ranks = _p15b_start(tmp)
+        ddp1 = _p15a_start(tmp)
+        library_flow = _p15c_spatial(tmp, ckpt, tree, paths)
+        cpu = _p15c_cpu_start(tmp, ckpt, pair)
+        _p15b_finish(tmp, ranks)
+        _p15e_repair(tmp)
+        _p15c_cpu_check(cpu, library_flow)
+        _p15d_check_export(export)
+        _p15a_finish(tmp, ddp1)
+        _p15d_finish(served, library_flow)
+    finally:
+        # a phase that failed leaves no child behind
+        for proc in CHILDREN[first:]:
+            if proc.returncode is None:
+                procs.kill_group(proc)
+    wall = time.perf_counter() - t0
+    log(f"phase 15: wall time {wall:.1f} s (budget {PHASE15_BUDGET_S} s)")
+    if wall > PHASE15_BUDGET_S:
+        raise AssertionError("phase 15 overran its time budget")
+
+
 def main(argv=None):
     import torch
 
@@ -2036,12 +2885,26 @@ def main(argv=None):
             ckpt = os.path.join(tmp, "flownet2_seed0.npz")
             _jax_layout_npz(get_model("2").build("cpu"), ckpt)
             phase14_input_path(tmp, _write_chairs(tmp)[0], ckpt)
+        _check_no_child_left()
         log(f"chip_smoke.py --phase14: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
+    if argv == ["--phase15"]:
+        # phases 0 and 15 alone, on their own inputs; no result line
+        from flownet2_tf_tpu_torch.models.registry import get_model
+
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "flownet2_seed0.npz")
+            tree = _jax_layout_npz(get_model("2").build("cpu"), ckpt)
+            phase15_data_parallel_and_spatial(tmp, ckpt, tree)
+        _check_no_child_left()
+        log(f"chip_smoke.py --phase15: passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
-                         "or --phase14)")
+                         "--phase14 or --phase15)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -2070,7 +2933,9 @@ def main(argv=None):
             phase12_serving(tmp, tree, ckpt, flow_cuda)
             phase13_measurement(tmp, earlier)
             phase14_input_path(disk_tmp, chairs, ckpt, crc_py_mb_s)
+        phase15_data_parallel_and_spatial(tmp, ckpt, tree)
 
+    _check_no_child_left()
     log(f"chip_smoke.py: every phase passed in "
         f"{time.perf_counter() - t0:.1f} s")
     # the headline numbers are the f32 main path's: FlowNet2 (forward) and

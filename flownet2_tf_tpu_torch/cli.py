@@ -11,18 +11,23 @@ Port of nine subcommands of ``flownet2_tf_tpu/cli.py``:
   supports (schedule, checkpoints and resume, warm starts,
   ``--grad_accum``, ``--eval_every``, ``--transfer_flow_dtype``,
   ``--remat``, ``--image_summary_every``); one JSON line per logged step.
-  Data parallelism is not ported yet.
+  ``--multihost`` joins the process group the launcher's environment
+  names (torchrun's, or the JAX package's manual names) and trains with
+  DDP: NCCL on the card, gloo on the CPU.
 * ``test``: single-pair inference, f32 by default or
   ``--compute_dtype bfloat16`` -> ``.flo`` / flow PNG, and the same JSON
-  line on stdout.
+  line on stdout; ``--spatial_tiles N`` runs the pair as N
+  halo-overlapped bands, one batch on the device.
 * ``eval``: dataset AEE (Sintel, KITTI, FlyingChairs, FlyingThings3D,
   ChairsSDHom, TFRecords or synthetic), the JAX package's flags and JSON
   line; ``--save_outputs`` also writes each predicted flow.
 * ``make-tfrecords``: raw FlyingChairs -> reference-layout TFRecords.
 * ``export``: a port checkpoint or run directory -> JAX-layout ``.npz``
   weights, or with ``--aot`` a ``.flowpak`` serving artifact
-  (``tools/aot.py``; ``--shapes`` for a multi-shape bundle), bf16 with
-  half-res stack warps by default, as in the JAX package.
+  (``tools/aot.py``; ``--shapes`` for a multi-shape bundle,
+  ``--spatial_tiles`` for a single-pair graph over halo-overlapped
+  bands), bf16 with half-res stack warps by default, as in the JAX
+  package.
 * ``serve``: a ``.flowpak`` on an image pair, with no model code loaded.
 * ``bench``: frame pairs/s of a model forward (``tools/bench.py``): the
   median of gated samples, CUDA-event times on a card, one JSON line.
@@ -42,9 +47,10 @@ refused (ROADMAP Queue 1 item 18).
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
 card raises; on ``cpu`` the bench and the profiler report CPU times);
 ``serve`` runs on the device the artifact was exported on. ``convert``,
-data-parallel and spatial-tile exports, and the approximation knobs
-other than the warps (``--fusion_res``, ``--f32_features``, the bf16
-interconvs) are not ported yet.
+multi-platform artifacts and the approximation knobs other than the
+warps (``--fusion_res``, ``--f32_features``, the bf16 interconvs) are
+not ported yet; ``export --data_parallel`` (replicas one per card)
+waits for a machine with at least two cards.
 """
 
 from __future__ import annotations
@@ -70,6 +76,20 @@ def parse_warm_start_spec(spec: str):
 
 
 def cmd_train(args):
+    from flownet2_tf_tpu_torch.parallel.mesh import (
+        maybe_initialize_distributed,
+        shutdown_distributed,
+    )
+
+    # before the Trainer: it wraps its model in DDP when in a group
+    maybe_initialize_distributed(args.multihost, device=args.device)
+    try:
+        return _train(args)
+    finally:
+        shutdown_distributed()
+
+
+def _train(args):
     from flownet2_tf_tpu_torch.data.dataset_configs import get_dataset_config
     from flownet2_tf_tpu_torch.data.loader import (
         BatchLoader,
@@ -174,6 +194,8 @@ def cmd_test(args):
         compute_dtype=args.compute_dtype,
         device=args.device,
         warp_res=_warp_res(args),
+        spatial_tiles=args.spatial_tiles,
+        spatial_overlap=args.spatial_overlap,
     )
     print(
         json.dumps(
@@ -403,9 +425,13 @@ def cmd_export(args):
     if args.aot:
         from flownet2_tf_tpu_torch.tools import aot
 
-        aot.refuse_unported(args.data_parallel, args.spatial_tiles,
-                            platforms)
         shapes = parse_export_shapes(args)
+        try:
+            aot.check_tiling(args.batch, args.data_parallel,
+                             args.spatial_tiles, args.spatial_overlap)
+        except ValueError as e:
+            raise SystemExit(f"export --aot: {e}") from None
+        aot.refuse_unported(args.data_parallel, platforms)
     tree = warmstart.load_params_tree(args.ckpt)
     if args.aot:
         if shapes is not None:
@@ -420,7 +446,9 @@ def cmd_export(args):
                 args.model, tree, args.height, args.width, args.out,
                 batch=args.batch, compute_dtype=args.compute_dtype,
                 warp_mode=args.warp_mode, platforms=platforms,
-                device=args.device,
+                data_parallel=args.data_parallel,
+                spatial_tiles=args.spatial_tiles,
+                spatial_overlap=args.spatial_overlap, device=args.device,
             )
         print(json.dumps({"out": args.out, **meta}))
         return 0
@@ -517,6 +545,11 @@ def build_parser():
                    help="write TensorBoard image summaries every N steps")
     p.add_argument("--eval_every", type=int, default=0,
                    help="evaluate validation EPE every N steps")
+    p.add_argument("--multihost", action="store_true",
+                   help="call torch.distributed.init_process_group() at "
+                        "startup (from torchrun's RANK/WORLD_SIZE/"
+                        "MASTER_ADDR/MASTER_PORT, or COORDINATOR_ADDRESS/"
+                        "NUM_PROCESSES/PROCESS_ID) and train with DDP")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize the forward pass (activation-memory "
                         "savings for stacked models at large crops)")
@@ -557,6 +590,12 @@ def build_parser():
     p.add_argument("--no_flo", action="store_true")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--spatial_tiles", type=int, default=0,
+                   help=">1: halo-banded spatially tiled inference, the "
+                        "bands run as one batch on the device "
+                        "(parallel/spatial.py)")
+    p.add_argument("--spatial_overlap", type=int, default=128,
+                   help="halo rows per band side (multiple of 32)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_test)
 
@@ -671,10 +710,15 @@ def build_parser():
              "in one artifact are not ported yet",
     )
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 15)")
+                   help="N > 1 places N replicas one per card: waits for a "
+                        "machine with at least two cards (ROADMAP Queue 1 "
+                        "item 16)")
     p.add_argument("--spatial_tiles", type=int, default=0,
-                   help="not ported yet (ROADMAP Queue 1 item 16)")
-    p.add_argument("--spatial_overlap", type=int, default=128)
+                   help="N > 1 (batch 1): freeze halo-banded spatial tiling "
+                        "into the graph, the N bands run as one batch on "
+                        "the export device (parallel/spatial.py)")
+    p.add_argument("--spatial_overlap", type=int, default=128,
+                   help="halo rows per band side (multiple of 32)")
     _add_device_arg(p)
     p.set_defaults(fn=cmd_export)
 

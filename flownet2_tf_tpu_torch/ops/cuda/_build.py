@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library ``_build/lib<name>.so`` exposing a plain ``extern "C"``
 interface: no PyTorch headers, so a build takes seconds. A library is
 built again when any file under ``csrc/`` is newer than it. A failed
-build raises with nvcc's stderr; there is no fallback.
+build raises with nvcc's output; there is no fallback. nvcc runs as a
+bounded child (``utils/procs.py``): its own session, a hard timeout,
+its process group killed when it ends.
 
 The target is ``sm_90a`` (Hopper). ``nvcc`` is taken from ``$CUDA_HOME``,
 else ``/usr/local/cuda``, else ``PATH``.
@@ -18,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+from flownet2_tf_tpu_torch.utils import procs
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +33,9 @@ NVCC_FLAGS = (
     # registers, shared memory and spills of each kernel go to the log
     "-Xptxas", "-v",
 )
+
+# an nvcc run that takes longer than this (s) is killed and fails the build
+NVCC_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -78,16 +85,18 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        rc, out = procs.run(cmd, timeout=NVCC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc, out = -1, f"nvcc did not finish in {NVCC_TIMEOUT_S} s"
+    if rc != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}"
+            f"nvcc failed ({rc}) building {src}:\n{' '.join(cmd)}\n{out}"
         )
     with open(os.path.join(BUILD_DIR, f"lib{name}.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(out)
     os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 

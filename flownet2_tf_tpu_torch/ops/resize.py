@@ -5,11 +5,25 @@ Port of ``flownet2_tf_tpu/ops/resize.py``. TF1 maps destination pixel
 ``torch.nn.functional.interpolate(..., align_corners=False)`` uses
 half-pixel centers instead and gives different numbers, so it is not
 used here.
+
+The rows and columns are read so that a gradient through the resize
+repeats bit for bit: on CUDA by advanced indexing, whose backward
+(``index_put_`` with ``accumulate``) sorts the indices and sums each
+source pixel's contributions in that order (``index_select``'s
+``index_add_`` uses atomics there); on the CPU by ``index_select``,
+whose ``index_add_`` sums serially.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _take(t, dim, idx):
+    """``t.index_select(dim, idx)``, read by advanced indexing on CUDA."""
+    if t.is_cuda:
+        return t[(slice(None),) * dim + (idx,)]
+    return t.index_select(dim, idx)
 
 
 def resize_bilinear_tf1(x, out_h: int, out_w: int):
@@ -32,12 +46,12 @@ def resize_bilinear_tf1(x, out_h: int, out_w: int):
     wy = (src_y - y0.to(compute_dtype))[None, :, None, None]
     wx = (src_x - x0.to(compute_dtype))[None, None, :, None]
 
-    rows0 = x.index_select(1, y0)
-    rows1 = x.index_select(1, y1)
+    rows0 = _take(x, 1, y0)
+    rows1 = _take(x, 1, y1)
 
     def horiz(rows):
-        left = rows.index_select(2, x0)
-        right = rows.index_select(2, x1)
+        left = _take(rows, 2, x0)
+        right = _take(rows, 2, x1)
         return left * (1.0 - wx) + right * wx
 
     top = horiz(rows0)

@@ -1,2 +1,2 @@
-"""Device staging of host batches (``mesh.DevicePrefetcher``); data
-parallelism is not ported yet (ROADMAP Queue 1 item 15)."""
+"""Data parallelism (``mesh``: the process group, ``DevicePrefetcher``) and
+spatial tiling of inference (``spatial``)."""

@@ -1,31 +1,174 @@
-"""Device staging of host batches: ``DevicePrefetcher``.
+"""The process group of data-parallel training, and device staging of
+host batches (``DevicePrefetcher``).
 
-Port of ``flownet2_tf_tpu/parallel/mesh.py::DevicePrefetcher`` for one
-device. The rest of that module (the data-parallel mesh, batch sharding,
-replication, multi-host initialisation) maps to DDP and is not ported yet
-(ROADMAP Queue 1 item 15).
+Port of ``flownet2_tf_tpu/parallel/mesh.py``. The JAX package runs one
+program over a device mesh; the port runs one process per card, joined
+by ``torch.distributed`` (NCCL on CUDA, gloo on the CPU), and the
+trainer wraps its model in ``DistributedDataParallel``
+(``training/loop.py``). What maps to what:
 
-On a CUDA device a worker thread stages batch k+1 while the trainer runs
-step k: it pins each host array (``Tensor.pin_memory``), uploads it with
-``non_blocking=True`` on a copy stream of its own and records an event
-there. The consumer's stream waits on that event before it touches the
-batch, and each device tensor is marked used by the consumer's stream
-(``record_stream``), so the caching allocator does not hand its memory
-to the copy stream again while a step still reads it. The pinned buffers
-come from PyTorch's caching host allocator, which keeps a block out of
-reuse until the copy that reads it has completed. Arrays keep their
-dtype: uint8 images cross as uint8 and become floats on the device
+* ``maybe_initialize_distributed`` -> ``init_process_group`` from the
+  launcher's environment: torchrun's ``RANK``/``WORLD_SIZE``/
+  ``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT``, or the JAX package's
+  manual ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``, with
+  an explicit timeout, so that a missing peer ends the run instead of
+  holding it;
+* ``jax.process_count``/``process_index`` -> :func:`process_count`,
+  :func:`process_index`; :func:`shutdown_distributed` destroys the group;
+* ``shard_batch`` keeps the JAX contract: under several processes the
+  batch each loader yields is this process's local shard, and the global
+  batch is the local batch times the process count;
+* ``make_mesh``, ``batch_sharding``, ``replicated_sharding`` and
+  ``replicate`` shard one process's arrays over several devices; one
+  process per card has nothing to shard, so they have no counterpart.
+  ``mesh_for_batch``'s rule (the largest device count that divides the
+  batch) stays as a plain function of counts.
+
+Parity note on the data: the JAX package's ``cli train`` does not shard
+the data stream per process, and neither does the port: every process's
+loader yields the same batches.
+
+On a CUDA device ``DevicePrefetcher``'s worker thread stages batch k+1
+while the trainer runs step k: it pins each host array
+(``Tensor.pin_memory``), uploads it with ``non_blocking=True`` on a copy
+stream of its own and records an event there. The consumer's stream
+waits on that event before it touches the batch, and each device tensor
+is marked used by the consumer's stream (``record_stream``), so the
+caching allocator does not hand its memory to the copy stream again
+while a step still reads it. The pinned buffers come from PyTorch's
+caching host allocator, which keeps a block out of reuse until the copy
+that reads it has completed. Arrays keep their dtype: uint8 images cross
+as uint8 and become floats on the device
 (``training/loop.py::_images_to_float``). On the CPU the worker stages
 plain tensors.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 import queue
 import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+# how long a rendezvous or a collective may wait for a peer (s)
+DIST_TIMEOUT_S = 300.0
+
+_NO_ENV = (
+    "--multihost requires cluster coordination env: set RANK, WORLD_SIZE, "
+    "MASTER_ADDR and MASTER_PORT (torchrun sets them; LOCAL_RANK picks the "
+    "card), or COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID (the JAX "
+    "package's manual names)"
+)
+
+
+def _launch_env():
+    """(address, port, world size, rank, local rank or None) from the
+    launcher's environment, or None when it names no process group."""
+    env = os.environ
+    if all(env.get(k) for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR",
+                                 "MASTER_PORT")):
+        local = env.get("LOCAL_RANK")
+        return (env["MASTER_ADDR"], int(env["MASTER_PORT"]),
+                int(env["WORLD_SIZE"]), int(env["RANK"]),
+                int(local) if local else None)
+    if all(env.get(k) for k in ("COORDINATOR_ADDRESS", "NUM_PROCESSES",
+                                 "PROCESS_ID")):
+        host, _, port = env["COORDINATOR_ADDRESS"].rpartition(":")
+        if not host or not port.isdigit():
+            raise RuntimeError(
+                f"COORDINATOR_ADDRESS must be host:port, got "
+                f"{env['COORDINATOR_ADDRESS']!r}")
+        local = env.get("LOCAL_RANK")
+        return (host, int(port), int(env["NUM_PROCESSES"]),
+                int(env["PROCESS_ID"]), int(local) if local else None)
+    return None
+
+
+def maybe_initialize_distributed(enable: bool = False, device="cuda",
+                                 backend=None,
+                                 timeout_s: float = DIST_TIMEOUT_S) -> bool:
+    """Join the process group the launcher's environment names; returns
+    whether initialization ran (False, and nothing done, when ``enable``
+    is false).
+
+    ``backend`` defaults to NCCL when ``device`` is CUDA and gloo on the
+    CPU (gloo also carries CUDA tensors, through the host). On CUDA this
+    process takes ``cuda:LOCAL_RANK`` (``PROCESS_ID`` modulo the cards
+    when only the JAX names are set) and binds the group to it. Without
+    such an environment it raises at once, and a rendezvous or collective
+    that waits on a missing peer raises after ``timeout_s``.
+    """
+    if not enable:
+        return False
+    spec = _launch_env()
+    if spec is None:
+        raise RuntimeError(_NO_ENV)
+    addr, port, world, rank, local = spec
+    cuda = torch.device(device).type == "cuda"
+    backend = backend or ("nccl" if cuda else "gloo")
+    kwargs = {}
+    if cuda:
+        if local is None:
+            local = rank % max(1, torch.cuda.device_count())
+        torch.cuda.set_device(local)
+        if backend == "nccl":
+            kwargs["device_id"] = torch.device("cuda", local)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{addr}:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=float(timeout_s)),
+        **kwargs)
+    return True
+
+
+def distributed() -> bool:
+    """Whether this process is in an initialized process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    """Processes in the group (1 outside one)."""
+    return dist.get_world_size() if distributed() else 1
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group)."""
+    return dist.get_rank() if distributed() else 0
+
+
+def barrier():
+    """Wait for every process of the group; nothing outside one."""
+    if distributed():
+        dist.barrier()
+
+
+def shutdown_distributed():
+    """Leave the process group, if this process is in one."""
+    if distributed():
+        dist.destroy_process_group()
+
+
+def mesh_for_batch(batch_size: int, n_devices: int) -> int:
+    """The largest device count, at most ``n_devices``, that divides
+    ``batch_size`` (the JAX package's mesh shrinking rule)."""
+    n = max(1, int(n_devices))
+    while n > 1 and batch_size % n:
+        n -= 1
+    return n
+
+
+def shard_batch(batch, device="cpu"):
+    """This process's batch as tensors on ``device``, each in its own
+    dtype. Under several processes it is the process's local shard: the
+    global batch is its size times :func:`process_count`, and DDP
+    averages the shards' gradients."""
+    device = torch.device(device)
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
+            for k, v in batch.items()}
 
 
 class DevicePrefetcher:
@@ -68,11 +211,10 @@ class DevicePrefetcher:
         dtype, and on CUDA the event recorded after their uploads (pinned,
         asynchronous, on the copy stream when threaded, else on the
         current stream); None off CUDA."""
-        tensors = {k: v if isinstance(v, torch.Tensor)
-                   else torch.from_numpy(np.ascontiguousarray(v))
-                   for k, v in self._transform(host_batch).items()}
         if self._device.type != "cuda":
-            return {k: t.to(self._device) for k, t in tensors.items()}, None
+            return shard_batch(self._transform(host_batch),
+                               self._device), None
+        tensors = shard_batch(self._transform(host_batch))
         stream = self._stream or torch.cuda.current_stream(self._device)
         with torch.cuda.stream(stream):
             out = {k: (t if t.is_cuda else t.pin_memory()).to(

@@ -27,6 +27,8 @@ import time
 
 import numpy as np
 
+from flownet2_tf_tpu_torch.utils import procs
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "native_io.cc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -63,15 +65,15 @@ def build_library() -> bool:
     tmp = f"{_LIB_PATH}.{os.getpid()}.{threading.get_ident()}.tmp"
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run([cxx, *CXX_FLAGS, SOURCE, "-o", tmp],
-                              capture_output=True, text=True, timeout=300)
+        rc, out = procs.run([cxx, *CXX_FLAGS, SOURCE, "-o", tmp],
+                            timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
         _fall_back(f"{cxx} failed to run: {e}")
         return False
-    if proc.returncode != 0:
+    if rc != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
-        _fall_back(f"{cxx} exited {proc.returncode}: {proc.stderr.strip()}")
+        _fall_back(f"{cxx} exited {rc}: {out.strip()}")
         return False
     os.replace(tmp, _LIB_PATH)  # atomic: loaders see the old or new file
     last_build_s = time.perf_counter() - t0

@@ -33,8 +33,12 @@ warps' grid (``warp_mode`` half -> ``warp_res`` 2, quarter -> 4, full ->
 
 Exports are shape-specialized: H and W multiples of 64, one static
 (batch, H, W) per graph; a bundle holds several graphs and one copy of
-the weights. Data-parallel, spatial-tile, multi-platform and half-res
-fusion exports are not ported yet (ROADMAP Queue 1 item 16).
+the weights. ``spatial_tiles=N`` freezes halo-banded tiling into a
+single-pair graph (``parallel/spatial.py``: ``extract_tiles``, the model
+on the N bands as one batch, ``stitch_tiles``), run on the export device.
+Multi-platform and half-res fusion exports are not ported yet (ROADMAP
+Queue 1 items 16 and 18), and data-parallel exports (replicas one per
+card) wait for a machine with at least two cards.
 """
 
 from __future__ import annotations
@@ -79,17 +83,28 @@ def warp_res_of(warp_mode: str) -> int:
         ) from None
 
 
-def refuse_unported(data_parallel=0, spatial_tiles=0, platforms=None,
-                    fusion_res=1):
+def check_tiling(batch=1, data_parallel=0, spatial_tiles=0,
+                 spatial_overlap=128):
+    """ValueError for a spatial-tile export the JAX package refuses too:
+    with ``data_parallel``, at a batch other than 1, or with an overlap
+    that is not a multiple of 32."""
+    if int(data_parallel or 0) > 1 and int(spatial_tiles or 0) > 1:
+        raise ValueError("data_parallel and spatial_tiles are exclusive")
+    if int(spatial_tiles or 0) > 1:
+        if batch != 1:
+            raise ValueError("spatial_tiles serving is single-pair "
+                             f"(batch=1); got batch={batch}")
+        if int(spatial_overlap) % 32:
+            raise ValueError("overlap must be a multiple of 32")
+
+
+def refuse_unported(data_parallel=0, platforms=None, fusion_res=1):
     """SystemExit for the export options the port does not have yet."""
     if data_parallel and int(data_parallel) > 1:
         raise SystemExit(
-            "export --data_parallel is not ported yet: it comes with data "
-            "parallelism (ROADMAP Queue 1 item 15)")
-    if spatial_tiles and int(spatial_tiles) > 1:
-        raise SystemExit(
-            "export --spatial_tiles is not ported yet: it needs "
-            "parallel/spatial.py (ROADMAP Queue 1 item 16)")
+            f"export --data_parallel {data_parallel} is not ported yet: "
+            "placing the replicas one per card waits for a machine with at "
+            "least two cards (ROADMAP Queue 1 item 16)")
     if platforms is not None and len(platforms) > 1:
         raise SystemExit(
             f"export --platforms {','.join(platforms)}: multi-platform "
@@ -108,6 +123,29 @@ def _check_shape(height, width):
             f"stages): got {height}x{width}. Pad to the next multiple and "
             "crop the flow on the host."
         )
+
+
+class _SpatialServingForward(nn.Module):
+    """``fn(params, image_a, image_b) -> flow`` of one pair through
+    ``n_tiles`` halo-overlapped bands, run as one batch of ``forward``
+    (a :class:`_ServingForward`), cores stitched back."""
+
+    def __init__(self, forward, n_tiles, overlap):
+        super().__init__()
+        self.inner = forward
+        self.n_tiles, self.overlap = int(n_tiles), int(overlap)
+
+    def forward(self, params, image_a, image_b):
+        from flownet2_tf_tpu_torch.parallel.spatial import (
+            extract_tiles,
+            stitch_tiles,
+        )
+
+        tiles_a, core, offsets, h = extract_tiles(image_a, self.n_tiles,
+                                                  self.overlap)
+        tiles_b, _, _, _ = extract_tiles(image_b, self.n_tiles, self.overlap)
+        return stitch_tiles(self.inner(params, tiles_a, tiles_b), core,
+                            offsets, h)
 
 
 class _ServingForward(nn.Module):
@@ -242,16 +280,23 @@ def export_serving(model_name, params, height, width, out_path, batch=1,
 
     ``warp_mode='half'`` bakes the half-res stack-warp serving preset;
     ``'full'`` keeps exact warps (the parity path). ``platforms``, if
-    given, must name the export device's type. ``data_parallel``,
-    ``spatial_tiles`` (> 1), ``fusion_res=2`` and several platforms are
-    not ported and raise ``SystemExit``. Returns the metadata.
+    given, must name the export device's type. ``spatial_tiles=N`` (N >
+    1, batch 1, exclusive with ``data_parallel``) freezes halo-banded
+    tiling into the graph, the N bands run as one batch on the export
+    device (the JAX package places one per chip). ``data_parallel`` > 1,
+    ``fusion_res=2`` and several platforms are not ported and raise
+    ``SystemExit``. Returns the metadata.
     """
-    refuse_unported(data_parallel, spatial_tiles, platforms, fusion_res)
+    check_tiling(batch, data_parallel, spatial_tiles, spatial_overlap)
+    refuse_unported(data_parallel, platforms, fusion_res)
     _check_shape(height, width)
+    dp, sp = int(data_parallel or 0), int(spatial_tiles or 0)
     device = _export_device(device, platforms)
     forward, tensors, layouts, (params_bytes, bf16_leaves) = (
         _serving_forward(model_name, params, compute_dtype, warp_mode,
                          device))
+    if sp > 1:
+        forward = _SpatialServingForward(forward, sp, spatial_overlap)
     graph = _export_one(forward, tensors, layouts, height, width, batch,
                         device)
     meta = {
@@ -263,9 +308,9 @@ def export_serving(model_name, params, height, width, out_path, batch=1,
         "compute_dtype": compute_dtype,
         "warp_mode": warp_mode,
         "platforms": [device.type],
-        "data_parallel": 0,
-        "spatial_tiles": 0,
-        "spatial_overlap": 0,
+        "data_parallel": dp,
+        "spatial_tiles": sp,
+        "spatial_overlap": int(spatial_overlap) if sp else 0,
         "fusion_res": 1,
         "bf16_leaves": bf16_leaves,
     }

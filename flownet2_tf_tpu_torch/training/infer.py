@@ -114,15 +114,33 @@ def infer_flow(model_name, params, image_a, image_b, device="cuda",
 
 def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
               save_image=True, save_flo=True, compute_dtype="float32",
-              device="cuda", warp_res=1):
+              device="cuda", warp_res=1, spatial_tiles=0,
+              spatial_overlap=128):
     """Pair of image files -> .png / .flo outputs; returns the predicted
-    (H, W, 2) flow."""
+    (H, W, 2) flow.
+
+    ``spatial_tiles`` > 1 runs halo-banded tiled inference
+    (``parallel/spatial.py``, the bands as one batch on ``device``): the
+    pair is edge-padded to %64 on the host and the flow cropped back."""
     compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     params = load_params_tree(checkpoint)
     a, b = load_image_pair(input_a_path, input_b_path)
-    flow = infer_flow(model_name, params, a, b, device=device,
-                      compute_dtype=compute_dtype, warp_res=warp_res)
+    if spatial_tiles and int(spatial_tiles) > 1:
+        from flownet2_tf_tpu_torch.parallel.spatial import infer_flow_spatial
+
+        h, w = a.shape[:2]
+        pad = ((0, (-h) % 64), (0, (-w) % 64), (0, 0))
+        flow = infer_flow_spatial(
+            model_name, params, np.pad(np.asarray(a, np.float32), pad,
+                                       mode="edge"),
+            np.pad(np.asarray(b, np.float32), pad, mode="edge"),
+            n_tiles=int(spatial_tiles), overlap=int(spatial_overlap),
+            device=device, compute_dtype=compute_dtype,
+            warp_res=warp_res)[:h, :w]
+    else:
+        flow = infer_flow(model_name, params, a, b, device=device,
+                          compute_dtype=compute_dtype, warp_res=warp_res)
     write_flow_outputs(flow, out_dir, input_a_path,
                        save_flo=save_flo, save_image=save_image)
     return flow

@@ -1,9 +1,9 @@
-"""Training runtime on one device: the train step (bf16 policy by default,
-or f32), checkpoints, auto-resume, warm starts, frozen stages and
-metrics.
+"""Training runtime: the train step (bf16 policy by default, or f32),
+checkpoints, auto-resume, warm starts, frozen stages, metrics and data
+parallelism.
 
 Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
-``Trainer``) for one device. What maps to what:
+``Trainer``), one process per device. What maps to what:
 
 * the jitted pure step -> :meth:`Trainer.train_step`, eager autograd on a
   :class:`TrainState` updated in place (model, Adam, step count), all of
@@ -47,18 +47,33 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
 * ``image_summary_every`` -> every N steps four TensorBoard images of
   one center-cropped example: the inputs and the predicted and GT flows
   (``utils/flowlib.py::flow_to_image``), the prediction from a forward on
-  the device under ``torch.no_grad()``.
-
-Not ported yet (ROADMAP): data parallelism.
+  the device under ``torch.no_grad()``;
+* the data-parallel mesh -> ``DistributedDataParallel`` whenever the
+  process is in a group (``parallel/mesh.py::maybe_initialize_distributed``,
+  ``cli train --multihost``; world size 1 included): each process
+  trains on the batch its loader yields (its local shard; the global
+  batch is that times the process count) and DDP averages the gradients
+  over the group. Buffers are not broadcast (the nets have none), frozen
+  scopes are not trainable parameters, so DDP leaves them alone, and
+  every trainable parameter takes a gradient in every step
+  (``find_unused_parameters=False``). The logged ``loss``, ``data_loss``
+  and ``epe`` are all-reduced, and ``grad_norm`` is taken on the reduced
+  gradients, so every process logs the same numbers; only process 0
+  prints them and writes TensorBoard, and only process 0 writes
+  checkpoints, with a barrier after each save. ``restore_or_init`` and
+  ``warm_start`` run on every process from the same files. ``evaluate``
+  reduces its sums over the group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import shutil
 import time
+import warnings
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -74,6 +89,7 @@ from flownet2_tf_tpu_torch.models.common import (
     remat,
 )
 from flownet2_tf_tpu_torch.models.registry import get_model
+from flownet2_tf_tpu_torch.parallel import mesh
 from flownet2_tf_tpu_torch.parallel.mesh import DevicePrefetcher
 from flownet2_tf_tpu_torch.training import optim
 from flownet2_tf_tpu_torch.training.infer import pad_to_multiple, resolve_device
@@ -158,6 +174,9 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    # the DistributedDataParallel wrapper of ``model`` that runs the
+    # training forward when the process is in a group; None outside one
+    ddp: Optional[nn.Module] = None
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -184,6 +203,10 @@ class Trainer:
             )
         self.flow_wire_dtype = TRANSFER_FLOW_DTYPES[tfd]
         self.device = resolve_device(config.device)
+        if (mesh.distributed() and self.device.type == "cuda"
+                and self.device.index is None):
+            # DDP needs the card by index: the one the group bound
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.frozen = tuple(
             self.spec.default_frozen if config.frozen is None
             else config.frozen
@@ -199,7 +222,9 @@ class Trainer:
     def init_state(self) -> TrainState:
         """MSRA-initialised model (``torch.Generator`` seeded by
         ``config.seed``) on the device, frozen scopes frozen, Adam over
-        the rest, step 0."""
+        the rest, step 0. In a process group the model is wrapped in DDP,
+        whose constructor broadcasts process 0's parameters, so every
+        process starts from the same ones."""
         model = self.spec.build(
             self.device, warp_res=self.spec.warp_res_for(self.config.warp_res)
         ).train()
@@ -207,13 +232,33 @@ class Trainer:
         optim.zero_frozen_grads(model, self.frozen)
         trainable = [p for p in model.parameters() if p.requires_grad]
         optimizer, _ = optim.make_optimizer(trainable, self.schedule)
-        return TrainState(model, optimizer, 0)
+        ddp = None
+        if mesh.distributed():
+            with warnings.catch_warnings():
+                # newer torch renames the flag; both mean the same here
+                warnings.filterwarnings(
+                    "ignore", "`broadcast_buffers` is deprecated",
+                    FutureWarning)
+                ddp = nn.parallel.DistributedDataParallel(
+                    model,
+                    device_ids=[self.device] if self.device.type == "cuda"
+                    else None,
+                    broadcast_buffers=False, find_unused_parameters=False)
+        return TrainState(model, optimizer, 0, ddp)
 
     # -- checkpoints --------------------------------------------------------
 
-    def save(self, state: TrainState):
+    def save(self, state: TrainState, barrier: bool = True):
         """Write ``log_dir/checkpoints/<step>/`` (written aside, then
-        renamed into place) and keep the newest ``keep_checkpoints``."""
+        renamed into place) and keep the newest ``keep_checkpoints``. In a
+        process group only process 0 writes, and with ``barrier`` every
+        process waits until it has."""
+        if mesh.process_index() == 0:
+            self._write_checkpoint(state)
+        if barrier:
+            mesh.barrier()
+
+    def _write_checkpoint(self, state: TrainState):
         root = os.path.join(self.config.log_dir, "checkpoints")
         final = os.path.join(root, str(state.step))
         tmp = final + ".tmp"
@@ -278,12 +323,18 @@ class Trainer:
             flow = torch.from_numpy(np.asarray(flow))
         return {**batch, "flow": flow.to(self.flow_wire_dtype)}
 
-    def _loss(self, model, image_a, image_b, flow):
+    def _loss(self, state, image_a, image_b, flow):
+        # In a group each process's loss divides its pixel sum S_r by its
+        # local batch b = B / P, and DDP averages the gradients over the P
+        # processes: (1/P) sum_r grad(S_r / b) = grad(sum_r S_r / B), the
+        # gradient of the JAX package's loss on the global batch B. The L2
+        # term is the same on every process, so its average is itself.
+        forward = state.ddp if state.ddp is not None else state.model
         with remat(self.config.remat):
-            preds = model({"input_a": image_a, "input_b": image_b},
-                          self.compute_dtype)
+            preds = forward({"input_a": image_a, "input_b": image_b},
+                            self.compute_dtype)
         data_loss = self.spec.loss(flow, preds)
-        reg = optim.l2_regularization(model, self.frozen)
+        reg = optim.l2_regularization(state.model, self.frozen)
         total = data_loss + self.weight_decay * reg
         epe = endpoint_error_mean(flow, preds["flow"])
         return total, data_loss, epe
@@ -294,6 +345,9 @@ class Trainer:
         cfg = self.config
         accum = max(1, int(cfg.grad_accum))
         image_a, image_b, flow = self._to_device(batch, self.flow_wire_dtype)
+        # The JAX package refuses a global batch that does not divide its
+        # mesh; here each process takes its own local batch whole, so
+        # there is nothing to divide and no such error.
         if image_a.shape[0] % accum:
             raise ValueError(
                 f"grad_accum={accum} must divide the batch size "
@@ -308,11 +362,20 @@ class Trainer:
                     gen, image_a, image_b, flow, preprocess)
             state.optimizer.zero_grad(set_to_none=True)
             sums = torch.zeros(3, device=self.device)
-            for a, b, f in zip(image_a.chunk(accum), image_b.chunk(accum),
-                               flow.chunk(accum)):
-                total, data_loss, epe = self._loss(state.model, a, b, f)
-                (total / accum).backward()
+            micro = list(zip(image_a.chunk(accum), image_b.chunk(accum),
+                             flow.chunk(accum)))
+            for i, (a, b, f) in enumerate(micro):
+                # DDP reduces the gradients once, in the last backward
+                sync = state.ddp is None or i == len(micro) - 1
+                with contextlib.nullcontext() if sync else state.ddp.no_sync():
+                    total, data_loss, epe = self._loss(state, a, b, f)
+                    (total / accum).backward()
                 sums += torch.stack([total, data_loss, epe]).detach()
+            if state.ddp is not None:
+                # equal local batches: the mean of the processes' means
+                torch.distributed.all_reduce(sums)
+                sums /= mesh.process_count()
+            # after DDP's reduce: the global gradient on every process
             grads = [p.grad for group in state.optimizer.param_groups
                      for p in group["params"] if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(
@@ -365,7 +428,9 @@ class Trainer:
 
     def evaluate(self, state: TrainState, eval_loader, max_batches=None):
         """Mean full-res EPE over validation batches (edge-padded to %64
-        and cropped back, like inference)."""
+        and cropped back, like inference). In a process group the sums and
+        counts are reduced over it, so every process returns the same
+        value."""
         max_batches = max_batches or self.config.eval_batches
         total, n = 0.0, 0
         batches = eval_loader.batches(epochs=1)
@@ -384,6 +449,11 @@ class Trainer:
                         break
         finally:
             batches.close()
+        if mesh.distributed():
+            stats = torch.tensor([total, n], dtype=torch.float64,
+                                 device=self.device)
+            torch.distributed.all_reduce(stats)
+            total, n = stats[0].item(), int(stats[1].item())
         if n == 0:
             print("warning: validation loader yielded no batches "
                   "(split smaller than batch size?)", flush=True)
@@ -404,8 +474,9 @@ class Trainer:
             elif warm_start_checkpoints:
                 state = self.warm_start(state, warm_start_checkpoints)
 
+        chief = mesh.process_index() == 0
         writer = None
-        if cfg.tensorboard:
+        if cfg.tensorboard and chief:
             from flownet2_tf_tpu_torch.utils.tensorboard import SummaryWriter
 
             writer = SummaryWriter(cfg.log_dir)
@@ -431,16 +502,17 @@ class Trainer:
                     metrics["examples_per_sec"] = examples_since / max(
                         now - t_last, 1e-9)
                     t_last, examples_since = now, 0
-                    print(json.dumps({"step": step, **{
-                        k: round(v, 6) for k, v in metrics.items()}}),
-                        flush=True)
+                    if chief:
+                        print(json.dumps({"step": step, **{
+                            k: round(v, 6) for k, v in metrics.items()}}),
+                            flush=True)
                     if writer:
                         writer.scalars(metrics, step)
                         writer.flush()
                 if (eval_loader is not None and cfg.eval_every
                         and step % cfg.eval_every == 0):
                     val_epe = self.evaluate(state, eval_loader)
-                    if val_epe is not None:
+                    if val_epe is not None and chief:
                         print(json.dumps({"step": step,
                                           "val_epe": round(val_epe, 6)}),
                               flush=True)
@@ -455,6 +527,9 @@ class Trainer:
                 if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                     self.save(state)
                     saved_step = step
+            if state.step != saved_step:
+                self.save(state)
+                saved_step = state.step
         finally:
             batches.close()
             if self._updating:
@@ -464,7 +539,9 @@ class Trainer:
                       "step was inside the optimizer update; the newest "
                       "checkpoint on disk is unchanged", flush=True)
             elif state.step != saved_step:
-                self.save(state)
+                # interrupted: process 0 saves what it has, with no
+                # barrier, which a peer that died would never reach
+                self.save(state, barrier=False)
             if writer:
                 writer.close()
         return state

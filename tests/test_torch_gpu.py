@@ -619,3 +619,35 @@ def test_native_decode_matches_pure_on_the_card_host(gen, tmp_path):
         for k in got:
             assert got[k].dtype == want[k].dtype
             assert got[k].tobytes() == want[k].tobytes(), k
+
+
+def test_warp_and_resize_gradients_repeat_on_card(gen):
+    """The warp's and the resize's backwards on the card (advanced-
+    indexing reads: ``index_put_`` sorts the indices and sums each
+    pixel's contributions in that order) are bitwise equal run to run,
+    with thousands of samples per pixel, and match the CPU's gradients
+    (rtol 1e-4, atol 1e-3: f32 sums of up to ~8000 contributions of a
+    pixel, in another order)."""
+    from flownet2_tf_tpu_torch.ops import resize, sampling
+
+    img = torch.rand(2, 96, 128, 8, device="cuda", generator=gen)
+    x, y = (torch.rand(2, 320, 448, device="cuda", generator=gen) * 5
+            for _ in range(2))
+    small = torch.rand(8, 40, 56, 2, device="cuda", generator=gen)
+
+    def grads(device):
+        # fresh leaves each call (``to`` on the same device is no copy)
+        i = img.to(device).clone().requires_grad_()
+        i1 = img[:1].to(device).clone().requires_grad_()
+        s = small.to(device).clone().requires_grad_()
+        xs, ys = x.to(device), y.to(device)
+        (sampling.bilinear_gather(i, xs, ys).square().sum()
+         + sampling.bilinear_gather_multi(i1, xs, ys).square().sum()
+         + resize.resize_bilinear_tf1(s, 320, 448).square().sum()
+         ).backward()
+        return i.grad, i1.grad, s.grad
+
+    first, second = grads("cuda"), grads("cuda")
+    for a, b, c in zip(first, second, grads("cpu")):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-3)

@@ -383,8 +383,8 @@ def test_warp_mode_and_unported_options():
         1, 2, 4]
     with pytest.raises(ValueError, match="warp_mode"):
         aot.warp_res_of("eighth")
-    for kw in ({"data_parallel": 8}, {"spatial_tiles": 2},
-               {"platforms": ["cuda", "cpu"]}, {"fusion_res": 2}):
+    for kw in ({"data_parallel": 8}, {"platforms": ["cuda", "cpu"]},
+               {"fusion_res": 2}):
         with pytest.raises(SystemExit, match="not ported"):
             aot.export_serving("s", {}, 64, 64, "x.flowpak", device="cpu",
                                **kw)
@@ -586,8 +586,7 @@ def test_cli_export_npz_and_unported_flags(tmp_path, ckpt_s, trees,
         assert sorted(got.files) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
-    for flag in (["--data_parallel", "8"], ["--spatial_tiles", "2"],
-                 ["--platforms", "cuda,cpu"]):
+    for flag in (["--data_parallel", "8"], ["--platforms", "cuda,cpu"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main(["export", "--aot", "--ckpt", str(ckpt_s), "--out",
                       str(tmp_path / "x.flowpak"), "--device", "cpu",
