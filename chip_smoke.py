@@ -84,8 +84,22 @@ weights:
   --spatial_tiles 2`` of FlowNet2 f32 served in a fresh process against
   (c)'s flow; (e) the warp and resize gradients and two 3-step bf16
   FlowNetCS runs with nothing frozen bitwise repeatable, and the
-  repair's price on the FlowNetCSS step. ``--phase15`` runs phases 0 and
-  15 alone.
+  repair's price on the FlowNetCSS step. (a) also trains FlowNetC 2
+  bf16 steps with the FlyingChairs augmentation under DDP at world size
+  1 and without, bitwise equal (each rank seeds its augmentation from its
+  rank; rank 0 keeps the single-process seed). ``--phase15`` runs phases
+  0 and 15 alone.
+* phase 16, ``cli convert``: (a) phase 2's seeded FlowNet2 weights
+  written as a TF1 checkpoint (a V2 bundle of about 650 MB in 2 shards, by
+  ``tests/_torch_tf1_writer.py``, with an Adam slot and ``global_step``),
+  read back by ``tools/tf1_bundle.py`` (MB/s), ``cli convert --model 2
+  --no_canary`` on the card (the .npz bitwise the written weights), then
+  the semantic canary on the card, which must reject these random weights
+  (their mean flow is far outside its band) after one correlation launch,
+  its flow bitwise ``cli test``'s on the .npz; (b) phase 5's trained
+  FlowNetC converted the same way with the canary on: one correlation
+  launch, its flow bitwise ``cli test --model c``'s. ``--phase16`` runs
+  phases 0 and 16 alone (FlowNetC trained there as phase 5's first run).
 
 Every child process (phase 12's and phase 15's workers, the DDP ranks,
 ``nvidia-smi``, the compilers) starts in its own session with its output
@@ -116,6 +130,7 @@ import itertools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -428,9 +443,10 @@ def _jax_layout_npz(model, path):
     return tree
 
 
-def _cli_test(ckpt, out_dir, dtype):
-    """``cli test --model 2`` on the card at ``dtype`` on the bundled pair,
-    between a reset and a read of the launch counts; returns the .flo."""
+def _cli_test(ckpt, out_dir, dtype, model="2"):
+    """``cli test --model 2`` (or ``model``) on the card at ``dtype`` on
+    the bundled pair, between a reset and a read of the launch counts;
+    returns the .flo."""
     import numpy as np
 
     from flownet2_tf_tpu_torch import cli
@@ -438,7 +454,7 @@ def _cli_test(ckpt, out_dir, dtype):
     from flownet2_tf_tpu_torch.utils import flowlib
 
     correlation_kernel.reset_launch_counts()
-    rc = cli.main(["test", "--model", "2", "--device", "cuda",
+    rc = cli.main(["test", "--model", model, "--device", "cuda",
                    "--compute_dtype", dtype, "--ckpt", ckpt,
                    "--input_a", os.path.join(SAMPLES, "0img0.ppm"),
                    "--input_b", os.path.join(SAMPLES, "0img1.ppm"),
@@ -2038,6 +2054,8 @@ def phase14_input_path(tmp, chairs, ckpt, crc_py_mb_s=None):
 # whole frame, edge-padded to 512 rows)
 PHASE15_BUDGET_S = 150.0
 P15_STEPS = 3
+# (a)'s augmented train steps at world size 1 under DDP and without
+P15_AUG_STEPS = 2
 # (a)'s train_step_ms under DDP and without: f32 (device-bound) and bf16
 P15_STEP_DTYPES = ("float32", "bfloat16")
 CHILD_TIMEOUT_S = 300
@@ -2161,8 +2179,10 @@ def train_worker(spec_path):
     with the spec's arguments, in the launcher environment it was given;
     then, in a group joined again on the spec's second port,
     ``train_step_ms`` of FlowNetC under DDP at each dtype of
-    P15_STEP_DTYPES. Writes the log records, the step times and the
-    correlation launch counts of both to the spec's result file."""
+    P15_STEP_DTYPES and :func:`_p15_augmented_steps`. Writes the log
+    records, the step times and the correlation launch counts of each to
+    the spec's result file, the augmented steps' parameters beside it."""
+    import numpy as np
     import torch
 
     from flownet2_tf_tpu_torch import cli
@@ -2194,9 +2214,12 @@ def train_worker(spec_path):
         out["step_ms"] = {dtype: benchlib.train_step_ms(
             "c", TRAIN_BATCH, TRAIN_H, TRAIN_W, dtype, iters=STEP_ITERS,
             device="cuda")[0] for dtype in P15_STEP_DTYPES}
+        out["step_ms_launches"] = launches()
+        params, out["aug_ddp"] = _p15_augmented_steps(spec["aug_log_dir"])
+        np.savez(spec["result"] + ".aug.npz", **params)
     finally:
         mesh.shutdown_distributed()
-    out["step_ms_launches"] = launches()
+    out["aug_launches"] = launches()
     with open(spec["result"], "w") as f:
         json.dump(out, f)
     return rc
@@ -2211,6 +2234,31 @@ def _p15_trainer(log_dir):
         model="c", schedule="short", log_dir=log_dir, device="cuda",
         compute_dtype="float32", augment=False, tensorboard=False,
         checkpoint_every=0))
+
+
+def _p15_augmented_steps(log_dir):
+    """(a)'s augmented steps: FlowNetC (bf16, its seeded init) trained
+    P15_AUG_STEPS ``train_step``s on ``_p15_batch`` with the FlyingChairs
+    augmentation spec (translate, rotate, zoom, squeeze, photometric,
+    noise; crop 320x448). Returns (its parameters in the JAX layout,
+    whether it ran under DDP)."""
+    import torch
+
+    from flownet2_tf_tpu_torch.data import dataset_configs
+    from flownet2_tf_tpu_torch.training import warmstart
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+
+    trainer = Trainer(TrainConfig(
+        model="c", schedule="short", log_dir=log_dir, device="cuda",
+        augment=True, tensorboard=False, checkpoint_every=0))
+    state = trainer.init_state()
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in _p15_batch().items()}
+    pre = dataset_configs.FLYING_CHAIRS_DATASET_CONFIG["PREPROCESS"]
+    for _ in range(P15_AUG_STEPS):
+        trainer.train_step(state, batch, pre)
+    return (warmstart.flatten(warmstart.to_jax_params(state.model)),
+            state.ddp is not None)
 
 
 def _p15_batch():
@@ -2334,7 +2382,8 @@ def _p15a_start(tmp):
     with open(spec, "w") as f:
         json.dump({"argv": [*P15A_ARGV, "--multihost", "--log_dir", ddp_dir],
                    "result": spec + ".out", "step_ms_port": _free_port(),
-                   "go": spec + ".go"}, f)
+                   "go": spec + ".go",
+                   "aug_log_dir": os.path.join(tmp, "p15_ddp1_aug")}, f)
     log_path = os.path.join(tmp, "p15_ddp1.log")
     proc = _start_child("train_worker", spec, log_path,
                         _launch_env(0, 1, _free_port()))
@@ -2364,6 +2413,10 @@ def _p15a_finish(tmp, started):
         n = 2 * (2 + STEP_ITERS)
         _check_counts(path_counts(), n, n, dtype,
                       f"phase 15 (a) train_step_ms {dtype}")
+    correlation_kernel.reset_launch_counts()
+    aug_plain, aug_ddp = _p15_augmented_steps(os.path.join(tmp, "p15_aug"))
+    _check_counts(path_counts(), P15_AUG_STEPS, P15_AUG_STEPS, "bfloat16",
+                  "phase 15 (a) augmented steps")
     t0 = time.perf_counter()
     _go(spec + ".go")
     _wait_child(proc, log_path, "phase 15 (a) cli train --multihost")
@@ -2379,6 +2432,12 @@ def _p15a_finish(tmp, started):
         raise AssertionError(f"phase 15 (a): train_step_ms under DDP "
                              f"launched {out['step_ms_launches']}")
     _add_launches(out["step_ms_launches"])
+    _check_counts(out["aug_launches"], P15_AUG_STEPS, P15_AUG_STEPS,
+                  "bfloat16", "phase 15 (a) augmented steps under DDP")
+    _add_launches(out["aug_launches"])
+    with np.load(spec + ".out.aug.npz") as z:
+        aug_same = out["aug_ddp"] and not aug_ddp and _bitwise_equal(
+            aug_plain, {k: z[k] for k in z.files})
     same = _bitwise_equal(_checkpoint_params(plain_dir, P15_STEPS),
                           _checkpoint_params(ddp_dir, P15_STEPS))
     same_log = [{k: v for k, v in r.items() if k != "examples_per_sec"}
@@ -2398,8 +2457,11 @@ def _p15a_finish(tmp, started):
         f"batch, CUDA events) under DDP against without: " + ", ".join(
             f"{d} {out['step_ms'][d]:.3f} against {plain_step[d]:.3f} ms "
             f"({100.0 * (out['step_ms'][d] / plain_step[d] - 1):+.1f}%)"
-            for d in P15_STEP_DTYPES))
-    if not (same and same_log):
+            for d in P15_STEP_DTYPES)
+        + f"; {P15_AUG_STEPS} bf16 train_steps with the FlyingChairs "
+        f"augmentation under DDP at world size 1 bitwise the plain steps: "
+        f"{aug_same}")
+    if not (same and same_log and aug_same):
         raise AssertionError("phase 15 (a): the world-size-1 DDP run differs "
                              "from the plain run")
 
@@ -2863,6 +2925,196 @@ def phase15_data_parallel_and_spatial(tmp, ckpt, tree):
         raise AssertionError("phase 15 overran its time budget")
 
 
+# phase 16: the TF1 checkpoint converter. Its wall-time budget (s) and the
+# bundles' shard count
+PHASE16_BUDGET_S = 120.0
+P16_SHARDS = 2
+
+
+@contextlib.contextmanager
+def _recording_canary():
+    """Record the flow of every ``forward_flow`` (the canary's forward)
+    and its wall time (synchronized before and after) while the block
+    runs."""
+    import torch
+
+    from flownet2_tf_tpu_torch.training import infer
+
+    rec = []
+    forward = infer.forward_flow
+
+    def spy(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow = forward(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec.append((flow.cpu().numpy(), (time.perf_counter() - t0) * 1e3))
+        return flow
+
+    infer.forward_flow = spy
+    try:
+        yield rec
+    finally:
+        infer.forward_flow = forward
+
+
+def _tf1_writer():
+    """``tests/_torch_tf1_writer.py`` of the checkout: the package ships
+    no writer of TF1 checkpoints."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_tf1_writer
+
+    return _torch_tf1_writer
+
+
+def _p16_convert(root, name, flat, scope, model, canary):
+    """Write ``flat`` as a TF1 bundle under ``scope`` (with an Adam slot
+    and ``global_step``), then ``cli convert`` it on the card
+    (``--no_canary`` unless ``canary``) between a reset and a read of the
+    launch counts, and check the .npz bitwise against ``flat``. Returns
+    (the prefix, the .npz, the JSON line, the counts, the bundle's bytes,
+    write s, convert s)."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+
+    writer = _tf1_writer()
+    t0 = time.perf_counter()
+    prefix = writer.write_bundle(os.path.join(root, name),
+                                 writer.to_tf_layout(flat, scope),
+                                 num_shards=P16_SHARDS)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for f in os.listdir(root) if f.startswith(name + "."))
+    out = os.path.join(root, f"{name}.npz")
+    correlation_kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    (line,) = _cli_lines(["convert", "--model", model, "--tf_checkpoint",
+                          prefix, "--out", out, "--device", "cuda",
+                          "--sample_dir", SAMPLES,
+                          *([] if canary else ["--no_canary"])])
+    convert_s = time.perf_counter() - t0
+    counts = path_counts()
+    with np.load(out) as z:
+        same = _bitwise_equal({k: z[k] for k in z.files}, flat)
+    if line["converted_variables"] != len(flat) or not same:
+        raise AssertionError(f"phase 16: cli convert --model {model} wrote "
+                             f"other weights ({line})")
+    return prefix, out, line, counts, size, write_s, convert_s
+
+
+def phase16_convert(tmp, tree, c_params):
+    """``cli convert`` (see the module docstring): FlowNet2 from ``tree``
+    (seeded random weights) and FlowNetC from ``c_params`` (a trained
+    checkpoint's .npz), each written as a TF1 bundle and converted on the
+    card; the canary's flows against ``cli test``'s."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.tools import tf1_bundle
+    from flownet2_tf_tpu_torch.tools.convert_tf1_checkpoint import (
+        semantic_canary,
+    )
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "p16")
+    os.makedirs(root)
+    try:
+        # (a) FlowNet2: these random weights predict a mean |flow| of
+        # about 556 px on the sample pair (the CPU's f32 flow), outside the
+        # canary's band, so the conversion runs with --no_canary and the
+        # canary runs apart and must reject them
+        flat = warmstart.flatten(tree)
+        prefix, out, line, counts, size, write_s, convert_s = _p16_convert(
+            root, "flownet-2.ckpt-0", flat, "FlowNet2", "2", canary=False)
+        _check_counts(counts, 0, 0, "float32", "phase 16 (a) conversion")
+        t1 = time.perf_counter()
+        reader = tf1_bundle.load_checkpoint(prefix)
+        read = sum(reader.get_tensor(n).nbytes
+                   for n in reader.get_variable_to_shape_map())
+        read_s = time.perf_counter() - t1
+        log(f"phase 16 (a): FlowNet2 as a TF1 bundle ({len(flat)} variables "
+            f"with an Adam slot and global_step, {P16_SHARDS} shards, "
+            f"{size / 1e6:.1f} MB) written in {write_s:.2f} s; every tensor "
+            f"read back and CRC-checked by tools/tf1_bundle.py in "
+            f"{read_s:.3f} s ({read / 1e6 / read_s:.1f} MB/s of tensor "
+            f"bytes, the page cache warm from the write); cli convert "
+            f"--model 2 --no_canary --device cuda {convert_s:.2f} s, "
+            f"{line['converted_variables']} leaves, the .npz bitwise the "
+            f"written weights")
+
+        with _recording_canary() as rec:
+            correlation_kernel.reset_launch_counts()
+            try:
+                semantic_canary(out, "2", sample_dir=SAMPLES, device="cuda")
+                rejected = ""
+            except ValueError as e:
+                rejected = str(e)
+            counts = path_counts()
+        _check_counts(counts, 1, 0, "float32", "phase 16 (a) canary")
+        (flow, canary_ms), = rec
+        flow_test, counts = _cli_test(out, os.path.join(root, "out_2"),
+                                      "float32")
+        _check_counts(counts, 1, 0, "float32", "phase 16 (a) cli test")
+        same = np.array_equal(flow[0], flow_test)
+        mean_mag = float(np.sqrt((flow[0] ** 2).sum(-1)).mean())
+        log(f"phase 16 (a): the canary's FlowNet2 f32 forward on the card "
+            f"({canary_ms:.2f} ms wall, its first call): 1 correlation "
+            f"launch, mean |flow| {mean_mag:.3f} px, rejected: "
+            f"{rejected!r}; its flow bitwise cli test's on the .npz: {same}")
+        if "semantic canary FAILED" not in rejected or not same:
+            raise AssertionError("phase 16 (a): the FlowNet2 canary is off")
+
+        # (b) FlowNetC from a trained checkpoint, the canary on
+        with np.load(c_params) as z:
+            c_flat = {k: z[k] for k in z.files}
+        with _recording_canary() as rec:
+            _, c_out, line, counts, size, write_s, convert_s = _p16_convert(
+                root, "flownet-c.ckpt-0", c_flat, "FlowNetC", "c",
+                canary=True)
+        _check_counts(counts, 1, 0, "float32", "phase 16 (b) cli convert")
+        (flow, canary_ms), = rec
+        flow_test, counts = _cli_test(c_out, os.path.join(root, "out_c"),
+                                      "float32", model="c")
+        _check_counts(counts, 1, 0, "float32", "phase 16 (b) cli test")
+        same = np.array_equal(flow[0], flow_test)
+        log(f"phase 16 (b): FlowNetC (a trained checkpoint) as a TF1 bundle "
+            f"of {size / 1e6:.1f} MB written in {write_s:.2f} s; cli convert "
+            f"--model c --device cuda with the canary {convert_s:.2f} s: "
+            f"{json.dumps(line['canary'])}; the canary's forward "
+            f"{canary_ms:.2f} ms wall (its first call), 1 correlation "
+            f"launch; its flow bitwise cli test --model c's: {same}")
+        if not same:
+            raise AssertionError("phase 16 (b): the canary's flow differs "
+                                 "from cli test's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"phase 16: wall time {wall:.1f} s (budget {PHASE16_BUDGET_S} s)")
+    if wall > PHASE16_BUDGET_S:
+        raise AssertionError("phase 16 overran its time budget")
+
+
+def _p16_flownet_c(tmp):
+    """``--phase16``'s FlowNetC checkpoint: phase 5's first run (f32,
+    TRAIN_STEPS steps); returns its params.npz."""
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    c_dir = os.path.join(tmp, "flownet_c")
+    correlation_kernel.reset_launch_counts()
+    _train(["--model", "c", "--log_dir", c_dir, "--max_steps",
+            str(TRAIN_STEPS), "--synthetic", "--synthetic_height",
+            str(TRAIN_H), "--synthetic_width", str(TRAIN_W), "--batch_size",
+            str(TRAIN_BATCH), "--schedule", "short", "--log_every", "5",
+            "--device", "cuda", "--compute_dtype", "float32"])
+    _check_counts(path_counts(), TRAIN_STEPS, TRAIN_STEPS, "float32",
+                  "phase 16 FlowNetC training")
+    return os.path.join(warmstart.latest_checkpoint(c_dir),
+                        warmstart.PARAMS_FILE)
+
+
 def main(argv=None):
     import torch
 
@@ -2902,9 +3154,22 @@ def main(argv=None):
         log(f"chip_smoke.py --phase15: passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    if argv == ["--phase16"]:
+        # phases 0 and 16 alone, on their own inputs; no result line
+        from flownet2_tf_tpu_torch.models.registry import get_model
+
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            tree = _jax_layout_npz(get_model("2").build("cpu"),
+                                   os.path.join(tmp, "flownet2_seed0.npz"))
+            phase16_convert(tmp, tree, _p16_flownet_c(tmp))
+        _check_no_child_left()
+        log(f"chip_smoke.py --phase16: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
-                         "--phase14 or --phase15)")
+                         "--phase14, --phase15 or --phase16)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -2915,8 +3180,13 @@ def main(argv=None):
         f32 = inference_numbers(3, tree, "float32", (1,))
         earlier["phase 3 f32 b1"] = f32[1]
         bwd_worst, bwd_timings = phase4_backward_vs_plain()
+        c_params = os.path.join(tmp, "flownet_c_phase5.npz")
         with tempfile.TemporaryDirectory() as train_tmp:
             training_path(5, train_tmp, "float32")
+            # phase 16 converts phase 5's trained FlowNetC
+            shutil.copy(os.path.join(train_tmp, "flownet_c", "checkpoints",
+                                     str(RESUME_STEPS), "params.npz"),
+                        c_params)
         earlier["phase 6 C f32 step"] = train_step_numbers(
             6, "float32", bwd_timings["float32"]["ms"])
         phase7_bf16_main_path(tmp, ckpt, tree, flow_cpu)
@@ -2934,6 +3204,7 @@ def main(argv=None):
             phase13_measurement(tmp, earlier)
             phase14_input_path(disk_tmp, chairs, ckpt, crc_py_mb_s)
         phase15_data_parallel_and_spatial(tmp, ckpt, tree)
+        phase16_convert(tmp, tree, c_params)
 
     _check_no_child_left()
     log(f"chip_smoke.py: every phase passed in "

@@ -1,7 +1,7 @@
 """CLI of the torch port: ``python -m flownet2_tf_tpu_torch.cli
-{train,test,eval,bench,profile,make-tfrecords,export,serve,info}``.
+{train,test,eval,bench,profile,make-tfrecords,convert,export,serve,info}``.
 
-Port of nine subcommands of ``flownet2_tf_tpu/cli.py``:
+Port of the ten subcommands of ``flownet2_tf_tpu/cli.py``:
 
 * ``train``: training, bf16 by default as in the JAX package
   (``--compute_dtype float32`` for the f32 path), on a dataset's raw
@@ -22,6 +22,11 @@ Port of nine subcommands of ``flownet2_tf_tpu/cli.py``:
   ChairsSDHom, TFRecords or synthetic), the JAX package's flags and JSON
   line; ``--save_outputs`` also writes each predicted flow.
 * ``make-tfrecords``: raw FlyingChairs -> reference-layout TFRecords.
+* ``convert``: a TF1 checkpoint (a V2 bundle, read with no TensorFlow by
+  ``tools/tf1_bundle.py``) -> JAX-layout ``.npz`` weights, checked
+  against the model's parameter shapes, then the semantic canary on the
+  bundled sample pair on ``--device`` (``--no_canary`` skips it); one
+  JSON line.
 * ``export``: a port checkpoint or run directory -> JAX-layout ``.npz``
   weights, or with ``--aot`` a ``.flowpak`` serving artifact
   (``tools/aot.py``; ``--shapes`` for a multi-shape bundle,
@@ -46,8 +51,8 @@ refused (ROADMAP Queue 1 item 18).
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
 card raises; on ``cpu`` the bench and the profiler report CPU times);
-``serve`` runs on the device the artifact was exported on. ``convert``,
-multi-platform artifacts and the approximation knobs other than the
+``serve`` runs on the device the artifact was exported on.
+Multi-platform artifacts and the approximation knobs other than the
 warps (``--fusion_res``, ``--f32_features``, the bf16 interconvs) are
 not ported yet; ``export --data_parallel`` (replicas one per card)
 waits for a machine with at least two cards.
@@ -380,6 +385,29 @@ def cmd_make_tfrecords(args):
     return 0
 
 
+def cmd_convert(args):
+    """TF1 checkpoint -> .npz, then the semantic canary on the sample
+    pair on ``--device``."""
+    from flownet2_tf_tpu_torch.tools.convert_tf1_checkpoint import (
+        convert,
+        semantic_canary,
+    )
+    from flownet2_tf_tpu_torch.training.infer import resolve_device
+
+    device = resolve_device(args.device)
+    n = convert(args.tf_checkpoint, args.model, args.out)
+    out = {"converted_variables": n, "out": args.out}
+    if not args.no_canary:
+        # names and shapes alone would load a semantically mismatched
+        # checkpoint cleanly: run the converted model on the bundled
+        # sample pair and require a sane flow
+        out["canary"] = semantic_canary(
+            args.out, args.model, sample_dir=args.sample_dir,
+            device=device, warp_res=_warp_res(args))
+    print(json.dumps(out))
+    return 0
+
+
 def parse_export_shapes(args):
     """Validate/parse ``export --aot --shapes`` BEFORE the checkpoint
     load, so usage errors are instant. Returns [(h, w, b), ...] or None.
@@ -665,6 +693,23 @@ def build_parser():
     p.add_argument("--val_count", type=int, default=640)
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_make_tfrecords)
+
+    p = sub.add_parser("convert", help="TF1 checkpoint -> .npz")
+    _add_model_arg(p)
+    p.add_argument("--tf_checkpoint", required=True,
+                   help="a TF1 V2 checkpoint prefix (flownet-2.ckpt-0), or "
+                        "a directory whose 'checkpoint' file names it")
+    p.add_argument("--out", required=True)
+    p.add_argument(
+        "--sample_dir", default="data/samples",
+        help="sample-pair dir for the post-conversion semantic canary",
+    )
+    p.add_argument(
+        "--no_canary", action="store_true",
+        help="skip the semantic sanity run on the sample pair",
+    )
+    _add_device_arg(p)
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser(
         "export",

@@ -46,20 +46,21 @@ def _crc_table():
     return _CRC_TABLE
 
 
-def crc32c_py(data: bytes) -> int:
+def crc32c_py(data) -> int:
     """Pure-Python CRC32C (Castagnoli), the JAX package's ``crc32c_py``:
     the oracle of the native one, and the fallback without it. A Python
-    byte loop: a few MB/s."""
+    byte loop: a few MB/s. ``data``: bytes, or a C-contiguous numpy
+    array (its bytes)."""
     table = _crc_table()
     crc = 0xFFFFFFFF
-    for b in data:
+    for b in memoryview(data).cast("B"):
         crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
     return crc ^ 0xFFFFFFFF
 
 
-def crc32c(data: bytes) -> int:
-    """CRC32C of ``data``: the native runtime's when it is available,
-    else :func:`crc32c_py`."""
+def crc32c(data) -> int:
+    """CRC32C of ``data`` (bytes, or a C-contiguous numpy array): the
+    native runtime's when it is available, else :func:`crc32c_py`."""
     from flownet2_tf_tpu_torch.runtime import native
 
     lib = native.get_native_io()

@@ -26,7 +26,8 @@ trainer wraps its model in ``DistributedDataParallel``
 
 Parity note on the data: the JAX package's ``cli train`` does not shard
 the data stream per process, and neither does the port: every process's
-loader yields the same batches.
+loader yields the same batches. Each process augments its batch with
+draws of its own (:func:`shard_batch`).
 
 On a CUDA device ``DevicePrefetcher``'s worker thread stages batch k+1
 while the trainer runs step k: it pins each host array
@@ -164,7 +165,15 @@ def shard_batch(batch, device="cpu"):
     """This process's batch as tensors on ``device``, each in its own
     dtype. Under several processes it is the process's local shard: the
     global batch is its size times :func:`process_count`, and DDP
-    averages the shards' gradients."""
+    averages the shards' gradients.
+
+    Every process's loader yields the same batches, so the shards start
+    equal; the trainer augments each one with draws seeded by the
+    process's rank (``training/loop.py::step_seed``). The JAX step
+    augments the global array with one key, which gives each process's
+    slice draws of its own; a ``torch.Generator`` cannot reproduce JAX's
+    draws, so the port keeps that structure (distinct draws per rank),
+    not the numbers."""
     device = torch.device(device)
     return {k: (v if isinstance(v, torch.Tensor)
                 else torch.from_numpy(np.ascontiguousarray(v))).to(device)

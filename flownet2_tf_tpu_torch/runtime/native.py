@@ -129,7 +129,14 @@ class NativeIO:
 
     # -- scalar helpers ------------------------------------------------------
 
-    def crc32c(self, data: bytes) -> int:
+    def crc32c(self, data) -> int:
+        """CRC32C of ``data``: bytes, or a C-contiguous numpy array (its
+        bytes, read in place)."""
+        if isinstance(data, np.ndarray):
+            if not data.flags.c_contiguous:
+                raise ValueError("crc32c: the array must be C-contiguous")
+            return int(self._lib.fnio_crc32c(
+                data.ctypes.data_as(ctypes.c_char_p), data.nbytes))
         return int(self._lib.fnio_crc32c(data, len(data)))
 
     def read_flo(self, path) -> np.ndarray:

@@ -21,8 +21,11 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   through;
 * device-side augmentation inside the step -> ``data/augmentation.py`` on
   the device, its draws from a ``torch.Generator`` seeded from
-  ``(seed + 17, step)``, so a resumed run draws what an uninterrupted one
-  would (the JAX package's ``fold_in``);
+  ``(seed + 17, step, rank)`` (:func:`step_seed`), so a resumed run draws
+  what an uninterrupted one would (the JAX package's ``fold_in``) and,
+  in a process group, each rank augments its local batch with draws of
+  its own, as the JAX step's one key gives each process's slice of the
+  global array its own draws;
 * ``stop_grad_frozen`` / ``zero_frozen_grads`` -> frozen scopes switched
   to ``requires_grad=False`` and kept out of Adam
   (``training/optim.py::zero_frozen_grads``);
@@ -179,10 +182,19 @@ class TrainState:
     ddp: Optional[nn.Module] = None
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The augmentation generator's seed at ``step``: a pure function of
-    ``(seed + 17, step)``."""
-    return (((seed + 17) << 32) + step) & 0xFFFF_FFFF_FFFF_FFFF
+_U64 = 0xFFFF_FFFF_FFFF_FFFF
+# odd, so ``rank * _RANK_MIX`` is a bijection on 64-bit ranks
+_RANK_MIX = 0x9E37_79B9_7F4A_7C15
+
+
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The augmentation generator's seed at ``step`` on process ``rank``:
+    a pure function of ``(seed + 17, step, rank)``. Rank 0 (and so every
+    single-process run) keeps the seed ``(seed + 17, step)``; the other
+    ranks XOR it with distinct 64-bit words, so no two ranks share a seed
+    at any step."""
+    base = (((seed + 17) << 32) + step) & _U64
+    return base ^ ((rank * _RANK_MIX) & _U64)
 
 
 class Trainer:
@@ -357,7 +369,8 @@ class Trainer:
         with f32_policy(self.compute_dtype):
             if cfg.augment and preprocess is not None:
                 gen = torch.Generator(device=self.device)
-                gen.manual_seed(step_seed(cfg.seed, state.step))
+                gen.manual_seed(step_seed(cfg.seed, state.step,
+                                          mesh.process_index()))
                 image_a, image_b, flow = augmentation.augment_batch(
                     gen, image_a, image_b, flow, preprocess)
             state.optimizer.zero_grad(set_to_none=True)

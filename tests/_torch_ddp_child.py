@@ -1,5 +1,5 @@
 """One rank of a data-parallel run of the port's trainer on the CPU (gloo),
-for tests/test_torch_parallel.py.
+for tests/test_torch_parallel.py and tests/test_torch_rank_augment.py.
 
     python tests/_torch_ddp_child.py SPEC.json
 
@@ -17,7 +17,14 @@ metrics) and ``<result>.<rank>.npz`` (its parameters in the JAX layout):
   checkpointing into ``log_dir``; then a fresh trainer's
   ``restore_or_init`` and an ``evaluate`` over a rank-own eval batch.
   With ``fail_after: n`` the loader raises after n batches instead, and
-  the rank records the error it got from ``fit``.
+  the rank records the error it got from ``fit``;
+* ``mode: "augment"``: every rank takes the same local batch (the first
+  ``len(batch) // world`` examples, as every loader of ``cli train``
+  yields the same batches) and ``Trainer.fit`` runs ``steps`` steps with
+  augmentation on (``preprocess``) from one seed. Each step's augmented
+  ``image_a`` goes to ``<result>.<rank>.aug.npz``. A second run stops
+  after one step, and a fresh trainer resumes it from its checkpoint to
+  ``steps``: its parameters go to ``<result>.<rank>.resumed.npz``.
 """
 
 import json
@@ -33,6 +40,7 @@ import torch  # noqa: E402
 
 torch.set_num_threads(1)
 
+from flownet2_tf_tpu_torch.data import augmentation  # noqa: E402
 from flownet2_tf_tpu_torch.parallel import mesh  # noqa: E402
 from flownet2_tf_tpu_torch.training import warmstart  # noqa: E402
 from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer  # noqa: E402
@@ -64,6 +72,35 @@ def _flat(model):
     return warmstart.flatten(warmstart.to_jax_params(model))
 
 
+def _augmented_runs(cfg, shard, spec, prefix):
+    """``mode: "augment"``: the uninterrupted run (its augmented inputs
+    recorded) and the run resumed at step 1; returns the first."""
+    real = augmentation.augment_batch
+    drawn = []
+
+    def spy(gen, image_a, image_b, flow, preprocess):
+        out = real(gen, image_a, image_b, flow, preprocess)
+        drawn.append(out[0].numpy().copy())
+        return out
+
+    cfg = dict(cfg, augment=True)
+    pre, steps = spec["preprocess"], spec["steps"]
+    augmentation.augment_batch = spy
+    try:
+        state = Trainer(TrainConfig(**cfg)).fit(
+            ShardLoader(shard), preprocess=pre, max_steps=steps)
+    finally:
+        augmentation.augment_batch = real
+    np.savez(f"{prefix}.aug.npz", *drawn)
+    cfg["log_dir"] = spec["log_dir"] + "_resumed"
+    Trainer(TrainConfig(**cfg)).fit(ShardLoader(shard), preprocess=pre,
+                                    max_steps=1)
+    resumed = Trainer(TrainConfig(**cfg)).fit(
+        ShardLoader(shard), preprocess=pre, max_steps=steps)
+    np.savez(f"{prefix}.resumed.npz", **_flat(resumed.model))
+    return state
+
+
 def main(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
@@ -74,8 +111,8 @@ def main(spec_path):
         with np.load(spec["batch"]) as z:
             full = {k: z[k] for k in z.files}
         local = len(full["image_a"]) // world
-        shard = {k: v[rank * local:(rank + 1) * local]
-                 for k, v in full.items()}
+        first = 0 if spec["mode"] == "augment" else rank * local
+        shard = {k: v[first:first + local] for k, v in full.items()}
         cfg = dict(model=spec["model"], schedule=SCHEDULE,
                    log_dir=spec["log_dir"], device="cpu",
                    compute_dtype="float32", augment=False,
@@ -97,6 +134,8 @@ def main(spec_path):
                 metrics = trainer.train_step(state, shard)
                 for k in ("loss", "data_loss", "epe", "grad_norm"):
                     out[f"{k}{i}"] = float(metrics[k])
+        elif spec["mode"] == "augment":
+            state = _augmented_runs(cfg, shard, spec, prefix)
         elif spec.get("fail_after"):
             trainer = Trainer(TrainConfig(**cfg))
             state = trainer.init_state()
