@@ -100,6 +100,21 @@ weights:
   FlowNetC converted the same way with the canary on: one correlation
   launch, its flow bitwise ``cli test --model c``'s. ``--phase16`` runs
   phases 0 and 16 alone (FlowNetC trained there as phase 5's first run).
+* phase 17, the last serving and approximation levers, FlowNet2 at
+  448x1024 from phase 2's weights: (a) ``cli export --aot --platforms
+  cuda,cpu`` (f32, exact warps): one artifact, a graph per platform,
+  each served alone in a fresh process (``load_serving(device=)``), the
+  CUDA graph bitwise ``cli test`` with one correlation launch per call,
+  the CPU graph with none and within 1e-2 px mean EPE of it; artifact MB,
+  load s and served against eager ms/pair; (b) ``cli bench`` A/Bs, each
+  knob against its exact counterpart in turns (exact, knobs, exact):
+  ``--fusion_res 2`` and ``--f32_features default`` at f32 b1,
+  ``--fusion_res 2`` and ``FLOWNET2_TPU_BF16_INTERCONV=1`` at bf16 b8,
+  each floored at the peaks of the precisions it runs, and each knob's
+  flow delta (mean EPE) on the same random weights; (c)
+  ``export_serving(..., fusion_res=2)`` served bitwise its eager model;
+  (d) two ``cli train --model 2 --fusion_res 2`` bf16 runs of 2 steps,
+  checkpoints bitwise equal. ``--phase17`` runs phases 0 and 17 alone.
 
 Every child process (phase 12's and phase 15's workers, the DDP ranks,
 ``nvidia-smi``, the compilers) starts in its own session with its output
@@ -928,8 +943,8 @@ def _recording_launches():
     rec = {"shapes": [], "aee": [], "loaded": None}
     launch, aee, load = ck._launch, infer._aee_on_device, infer.inference_model
 
-    def load_timed(*args):
-        model = load(*args)
+    def load_timed(*args, **knobs):
+        model = load(*args, **knobs)
         rec["loaded"] = time.perf_counter()
         return model
 
@@ -1301,9 +1316,12 @@ def serve_worker(spec_path):
             results.append({"rc": rc, "line": buf.getvalue().strip(),
                             "wall_s": time.perf_counter() - t0})
             continue
-        sm = load_serving(task["artifact"])
+        # a task may name the platform to serve (a multi-platform
+        # artifact); else the artifact's one platform
+        sm = load_serving(task["artifact"], device=task.get("device"))
         res = {"load_s": time.perf_counter() - t0}
-        device = torch.device(sm.meta["platforms"][0])
+        device = torch.device(task.get("device")
+                              or sm.meta["platforms"][0])
         gen = torch.Generator(device=device).manual_seed(SEED)
 
         def timed(fn, n):
@@ -3115,6 +3133,296 @@ def _p16_flownet_c(tmp):
                         warmstart.PARAMS_FILE)
 
 
+# phase 17: the serving and approximation levers' wall-time budget (s,
+# printed), its train runs and the bench A/Bs' forwards per sample
+PHASE17_BUDGET_S = 180.0
+P17_TRAIN_HW, P17_TRAIN_BATCH, P17_STEPS = (384, 512), 4, 2
+INTERCONV_ENV = "FLOWNET2_TPU_BF16_INTERCONV"
+
+
+def _p17_pair(tmp):
+    """A seeded 448x1024 pair written as PNGs (``cli test``'s input) and
+    as the float arrays ``load_image_pair`` reads back from them (the
+    served calls' input): the same numbers on both paths."""
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.utils.image_io import (
+        load_image_pair,
+        write_image,
+    )
+
+    rng = np.random.RandomState(SEED + 17)
+    h, w = SERVE_HW
+    paths = [os.path.join(tmp, f"p17_{k}.png") for k in "ab"]
+    for path in paths:
+        write_image(rng.randint(0, 256, (h, w, 3), dtype=np.uint8), path)
+    a, b = load_image_pair(*paths)
+    npz = os.path.join(tmp, "p17_pair.npz")
+    np.savez(npz, a=a[None], b=b[None])
+    return paths, npz, a[None], b[None]
+
+
+def _p17_bench(flags, env=None):
+    """``cli bench --model 2`` at 448x1024 with ``flags`` (and ``env`` set
+    around it); checks its launches, returns its result."""
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.tools import bench
+
+    h, w = SERVE_HW
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        correlation_kernel.reset_launch_counts()
+        out = _cli_lines(["bench", "--model", "2", "--height", str(h),
+                          "--width", str(w), "--device", "cuda", "--iters",
+                          str(BENCH_ITERS), *flags])[-1]
+        counts = path_counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    dtype = "float32" if "float32" in flags else "bfloat16"
+    batch = int(flags[flags.index("--batch") + 1]) if "--batch" in flags else 1
+    forwards = (bench.WARMUP_FORWARDS
+                + _bench_attempts(out) * out["repeats"] * BENCH_ITERS)
+    _check_counts(counts, forwards, 0, dtype, f"phase 17 bench {flags}")
+    if out["backend"] != "cuda" or "floor_ms_analytic" not in out:
+        raise AssertionError(f"phase 17 bench {flags}: {out}")
+    out["batch"] = batch
+    return out
+
+
+def phase17_serving_levers(tmp, tree, ckpt):
+    """The last serving and approximation levers on the card (FlowNet2 at
+    448x1024, phase 2's weights): (a) one ``cli export --aot --platforms
+    cuda,cpu`` artifact served per platform in fresh processes, the CUDA
+    graph bitwise ``cli test`` with one correlation launch per call, the
+    CPU graph with none and within AEE_ATOL of it; (b) ``cli bench`` A/Bs
+    of each knob against its exact counterpart, in turns, with each
+    knob's flow delta on the same weights; (c) a ``fusion_res=2``
+    artifact served bitwise its eager model; (d) two ``cli train --model
+    2 --fusion_res 2`` runs bitwise equal."""
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+    from flownet2_tf_tpu_torch.tools import aot, profiler
+    from flownet2_tf_tpu_torch.training import infer
+    from flownet2_tf_tpu_torch.utils import flowlib
+
+    t0 = time.perf_counter()
+    before = json.loads(json.dumps(PATH_LAUNCHES))
+    h, w = SERVE_HW
+    (png_a, png_b), pair, a_np, b_np = _p17_pair(tmp)
+
+    # (a) one artifact, a graph per platform
+    both = os.path.join(tmp, "p17_cuda_cpu.flowpak")
+    meta, export_s = _cli_export([
+        "--model", "2", "--ckpt", ckpt, "--out", both, "--platforms",
+        "cuda,cpu", "--compute_dtype", "float32", "--warp_mode", "full",
+        "--height", str(h), "--width", str(w)])
+    with zipfile.ZipFile(both) as z:
+        sizes = {i.filename: i.file_size for i in z.infolist()}
+    if (meta["platforms"] != ["cuda", "cpu"] or sorted(sizes) != [
+            "exported-cpu.pt2", "exported-cuda.pt2", "meta.json",
+            "params.npz"]):
+        raise AssertionError(f"phase 17: artifact {meta['platforms']} "
+                             f"{sorted(sizes)}")
+    total_mb = os.path.getsize(both) / 1e6
+    single_mb = total_mb - sizes["exported-cpu.pt2"] / 1e6
+    log(f"phase 17: cli export --aot --platforms cuda,cpu f32 full "
+        f"{h}x{w}: {export_s:.2f} s, {total_mb:.1f} MB (graphs: cuda "
+        f"{sizes['exported-cuda.pt2'] / 1e6:.2f} MB, cpu "
+        f"{sizes['exported-cpu.pt2'] / 1e6:.2f} MB; without the cpu graph, "
+        f"as a cuda-only export holds: {single_mb:.1f} MB)")
+    flo = {p: os.path.join(tmp, f"p17_served_{p}.npy") for p in ("cuda",
+                                                                 "cpu")}
+    # the CPU graph serves in the background while (c) and (d) run
+    cpu_worker = _start_worker(tmp, "p17_cpu", [{
+        "kind": "single", "artifact": both, "device": "cpu", "pair": pair,
+        "flow_out": flo["cpu"]}], threads=6)
+
+    # (c) the half-res fusion artifact against its eager model
+    f2 = os.path.join(tmp, "p17_fusion2.flowpak")
+    t1 = time.perf_counter()
+    meta2 = aot.export_serving("2", tree, h, w, f2, compute_dtype="float32",
+                               warp_mode="full", fusion_res=2, device="cuda")
+    export2_s = time.perf_counter() - t1
+    correlation_kernel.reset_launch_counts()
+    a_t, b_t = (torch.from_numpy(x).cuda() for x in (a_np, b_np))
+    served = aot.load_serving(f2)(a_t, b_t)
+    model = infer.load_model("2", tree, "cuda", fusion_res=2)
+    eager = infer.forward_flow(model, a_t, b_t, torch.float32)
+    del model
+    counts = path_counts()
+    _check_counts(counts, 2, 0, "float32", "phase 17 (c)")
+    same = bool(torch.equal(served, eager))
+    log(f"phase 17 (c): export_serving(fusion_res=2) f32 full {h}x{w}: "
+        f"{export2_s:.2f} s, meta fusion_res {meta2['fusion_res']}; served "
+        f"flow bitwise the eager half-res model's: {same}; one correlation "
+        f"launch each {counts['fwd']}")
+    if meta2["fusion_res"] != 2 or not same:
+        raise AssertionError("phase 17 (c): the fusion_res=2 artifact")
+    os.remove(f2)
+
+    # (d) two bf16 training runs of the half-res fusion, bitwise equal
+    th, tw = P17_TRAIN_HW
+    runs = []
+    correlation_kernel.reset_launch_counts()
+    for i in range(2):
+        log_dir = os.path.join(tmp, f"p17_train_{i}")
+        t1 = time.perf_counter()
+        recs = _train(["--model", "2", "--fusion_res", "2", "--synthetic",
+                       "--synthetic_height", str(th), "--synthetic_width",
+                       str(tw), "--batch_size", str(P17_TRAIN_BATCH),
+                       "--max_steps", str(P17_STEPS), "--schedule", "short",
+                       "--log_every", "1", "--checkpoint_every", "0",
+                       "--device", "cuda", "--log_dir", log_dir])
+        runs.append((recs, _checkpoint_params(log_dir, P17_STEPS),
+                     time.perf_counter() - t1))
+        shutil.rmtree(log_dir)
+    counts = path_counts()
+    # CSS and SD frozen: the correlation runs forward only
+    _check_counts(counts, 2 * P17_STEPS, 0, "bfloat16", "phase 17 (d)")
+    repeat = _bitwise_equal(runs[0][1], runs[1][1])
+    losses = [[r["loss"] for r in recs] for recs, _, _ in runs]
+    log(f"phase 17 (d): cli train --model 2 --fusion_res 2 bf16 b"
+        f"{P17_TRAIN_BATCH} {th}x{tw}, {P17_STEPS} steps twice "
+        f"({runs[0][2]:.1f} s, {runs[1][2]:.1f} s): losses {losses}, "
+        f"checkpoints bitwise equal: {repeat}; launches {counts}")
+    if not repeat or losses[0] != losses[1] or not all(
+            math.isfinite(x) for x in losses[0]):
+        raise AssertionError("phase 17 (d): the two runs differ")
+
+    results, _, cpu_wall = _finish_worker(cpu_worker, None)
+    cpu_load = results[0]["load_s"]
+    # the CUDA graph, timed with the host quiet
+    results, calls, wall = _finish_worker(_start_worker(tmp, "p17_cuda", [{
+        "kind": "single", "artifact": both, "device": "cuda", "pair": pair,
+        "flow_out": flo["cuda"]}]), "float32")
+    cuda_res = results[0]
+    correlation_kernel.reset_launch_counts()
+    out_dir = os.path.join(tmp, "p17_cli_test")
+    rc = _cli_lines(["test", "--model", "2", "--device", "cuda",
+                     "--compute_dtype", "float32", "--ckpt", ckpt,
+                     "--input_a", png_a, "--input_b", png_b, "--out",
+                     out_dir])
+    test_flo = flowlib.read_flow(os.path.join(out_dir, "p17_a_flow.flo"))
+    _check_counts(path_counts(), 1, 0, "float32", "phase 17 cli test")
+    served = {p: np.load(f)[0] for p, f in flo.items()}
+    cuda_same = bool(np.array_equal(served["cuda"], test_flo))
+    cpu_epe = _epe(served["cpu"], served["cuda"])
+    model = infer.load_model("2", tree, "cuda")
+    eager_ms, eager_min = _eager_ms(model, 1, torch.float32,
+                                    {"input_a": a_t, "input_b": b_t})
+    del model
+    path_counts()
+    log(f"phase 17 (a): {rc[-1]['flow_shape']} cli test flow; the cuda "
+        f"graph (fresh process, {wall:.1f} s: load "
+        f"{cuda_res['load_s']:.2f} s, {calls} calls, one correlation launch "
+        f"each) bitwise it: {cuda_same}, two served calls bitwise equal: "
+        f"{cuda_res['same']}; served {cuda_res['ms_per_pair']:.3f} ms/pair "
+        f"(min {cuda_res['min']:.3f}, max {cuda_res['max']:.3f}) against "
+        f"eager {eager_ms:.3f} (min {eager_min:.3f}); the cpu graph (fresh "
+        f"process, {cpu_wall:.1f} s: load {cpu_load:.2f} s, no launch): "
+        f"mean EPE {cpu_epe:.3e} px to the cuda graph's (limit {AEE_ATOL})")
+    if not (cuda_same and cuda_res["same"]) or not cpu_epe <= AEE_ATOL:
+        raise AssertionError("phase 17 (a): the per-platform graphs")
+
+    # (b) each knob against its exact counterpart, in turns, and its flow
+    # delta on phase 2's weights at b1 on the pair
+    f32 = ["--compute_dtype", "float32"]
+    bf16_b8 = ["--batch", "8"]
+    interconv = {INTERCONV_ENV: "1"}
+    order = [("f32 exact", f32, None), ("f32 fusion_res 2",
+                                        f32 + ["--fusion_res", "2"], None),
+             ("f32 f32_features default",
+              f32 + ["--f32_features", "default"], None),
+             ("f32 exact again", f32, None),
+             ("bf16 b8 exact", bf16_b8, None),
+             ("bf16 b8 fusion_res 2", bf16_b8 + ["--fusion_res", "2"], None),
+             ("bf16 b8 bf16 interconvs", bf16_b8, interconv),
+             ("bf16 b8 exact again", bf16_b8, None)]
+    benches = {}
+    for what, flags, env in order:
+        out = benches[what] = _p17_bench(flags, env)
+        log(f"phase 17 (b): cli bench {what}: {out['ms_per_pair']:.3f} "
+            f"ms/pair (spread {out['spread_pct']}%, floor "
+            f"{out['floor_ms_analytic']} ms at {out['peak_tflops']} "
+            f"TFLOP/s, mfu {out.get('mfu')}, "
+            f"{out['model_tflops_per_pair']} TFLOP/pair) "
+            + json.dumps({k: out[k] for k in ("warp_mode", "fusion_res",
+                                               "bf16_interconv",
+                                               "f32_features") if k in out}))
+    for knob in ("fusion_res", "f32_features", "bf16_interconv"):
+        if not any(knob in out for out in benches.values()):
+            raise AssertionError(f"phase 17 (b): no bench names {knob}")
+    # where the f32 b1 knobs' time goes against the exact path's: device
+    # ms per forward by scope and the top kernels
+    for what, flags in (("exact", []),
+                        ("fusion_res 2", ["--fusion_res", "2"]),
+                        ("f32_features default",
+                         ["--f32_features", "default"])):
+        trace_dir = os.path.join(tmp, f"p17_trace_{what.replace(' ', '_')}")
+        correlation_kernel.reset_launch_counts()
+        last = _cli_lines(["profile", "--model", "2", "--device", "cuda",
+                           "--compute_dtype", "float32", "--iters", "3",
+                           "--top", "8", "--trace_dir", trace_dir,
+                           *flags])[-1]
+        _check_counts(path_counts(), profiler.WARMUP_FORWARDS + 3, 0,
+                      "float32", f"phase 17 profile {what}")
+        with open(os.path.join(last["trace_dir"], "summary.json")) as f:
+            summary = json.load(f)
+        scopes = {r["name"]: r["device_ms"] for r in summary["scopes"]}
+        busy = sum(r["device_ms"] for r in summary["kernels"])
+        top = sorted(summary["kernels"], key=lambda r: -r["device_ms"])[:6]
+        log(f"phase 17 (b): cli profile f32 b1 {what} (device ms per "
+            f"forward): all kernels {busy:.3f}; "
+            + ", ".join(f"{k} {scopes.get(k, float('nan')):.3f}" for k in (
+                "FlowNetCSS", "FlowNetSD", "fusion")) + "; top kernels "
+            + "; ".join(f"{r['name'][:60]} {r['device_ms']:.3f}"
+                        for r in top))
+        if (summary["fusion_res"], summary["f32_features"]) != (
+                2 if "fusion_res" in what else 1,
+                "default" if "f32_features" in what else "highest"):
+            raise AssertionError(f"phase 17 profile {what}: {summary}")
+    correlation_kernel.reset_launch_counts()
+    deltas = {}
+    for what, dtype, warp, knobs, ref in (
+            ("f32 fusion_res 2", "float32", 1, {"fusion_res": 2}, "f32"),
+            ("f32 f32_features default", "float32", 1,
+             {"f32_features": "default"}, "f32"),
+            ("bf16 half", "bfloat16", 2, {}, None),
+            ("bf16 half fusion_res 2", "bfloat16", 2, {"fusion_res": 2},
+             "bf16 half"),
+            ("bf16 half bf16 interconvs", "bfloat16", 2,
+             {"bf16_interconv": True}, "bf16 half")):
+        flow = infer.infer_flow("2", tree, a_np, b_np, device="cuda",
+                                compute_dtype=dtype, warp_res=warp,
+                                **knobs)[0]
+        deltas[what] = flow
+        if ref is not None:
+            base = test_flo if ref == "f32" else deltas[ref]
+            log(f"phase 17 (b): flow delta of {what} against its exact "
+                f"counterpart on phase 2's random weights: mean EPE "
+                f"{_epe(flow, base):.4f} px (mean |flow| "
+                f"{float(np.sqrt((base ** 2).sum(-1)).mean()):.4f} px)")
+    counts = path_counts()
+    if (counts["fwd"].get("float32") != 2 or counts["fwd"].get("bfloat16")
+            != 3 or sum(counts["bwd"].values())):
+        raise AssertionError(f"phase 17 deltas: launches {counts}")
+    wall = time.perf_counter() - t0
+    log("phase 17: correlation launches on its paths " + json.dumps({
+        way: {k: n - before[way][k] for k, n in by_dtype.items()}
+        for way, by_dtype in PATH_LAUNCHES.items()}))
+    log(f"phase 17: wall time {wall:.1f} s (budget {PHASE17_BUDGET_S} s"
+        f"{', over it' if wall > PHASE17_BUDGET_S else ''})")
+
+
 def main(argv=None):
     import torch
 
@@ -3167,9 +3475,22 @@ def main(argv=None):
         log(f"chip_smoke.py --phase16: passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    if argv == ["--phase17"]:
+        # phases 0 and 17 alone, on their own inputs; no result line
+        from flownet2_tf_tpu_torch.models.registry import get_model
+
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "flownet2_seed0.npz")
+            tree = _jax_layout_npz(get_model("2").build("cpu"), ckpt)
+            phase17_serving_levers(tmp, tree, ckpt)
+        _check_no_child_left()
+        log(f"chip_smoke.py --phase17: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
-                         "--phase14, --phase15 or --phase16)")
+                         "--phase14, --phase15, --phase16 or --phase17)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -3205,6 +3526,7 @@ def main(argv=None):
             phase14_input_path(disk_tmp, chairs, ckpt, crc_py_mb_s)
         phase15_data_parallel_and_spatial(tmp, ckpt, tree)
         phase16_convert(tmp, tree, c_params)
+        phase17_serving_levers(tmp, tree, ckpt)
 
     _check_no_child_left()
     log(f"chip_smoke.py: every phase passed in "

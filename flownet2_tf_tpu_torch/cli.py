@@ -31,9 +31,12 @@ Port of the ten subcommands of ``flownet2_tf_tpu/cli.py``:
   weights, or with ``--aot`` a ``.flowpak`` serving artifact
   (``tools/aot.py``; ``--shapes`` for a multi-shape bundle,
   ``--spatial_tiles`` for a single-pair graph over halo-overlapped
-  bands), bf16 with half-res stack warps by default, as in the JAX
+  bands, ``--platforms cuda,cpu`` for one graph per platform in one
+  artifact), bf16 with half-res stack warps by default, as in the JAX
   package.
-* ``serve``: a ``.flowpak`` on an image pair, with no model code loaded.
+* ``serve``: a ``.flowpak`` on an image pair, with no model code loaded,
+  on ``--device`` (default: the card when the artifact has a CUDA
+  graph).
 * ``bench``: frame pairs/s of a model forward (``tools/bench.py``): the
   median of gated samples, CUDA-event times on a card, one JSON line.
 * ``profile``: ``iters`` forwards under ``torch.profiler``
@@ -43,19 +46,25 @@ Port of the ten subcommands of ``flownet2_tf_tpu/cli.py``:
   FLOPs with ``torch.utils.flop_counter`` (``tools/benchlib.py``).
 
 The model subcommands (``train``, ``test``, ``eval``, ``bench``,
-``profile``) take the JAX package's warp flags: ``--warp_res {1,2,4}``
-(or ``--half_res_warp`` = 2) builds the stacked models with their stack
-warps on that grid; models without stack warps run unchanged.
-``--f32_features`` and ``--fusion_res`` other than their defaults are
-refused (ROADMAP Queue 1 item 18).
+``profile``, and ``convert``'s canary) take the JAX package's
+approximation knobs, each a build argument of the model
+(``ModelSpec.build_for``; a model that does not read a knob runs
+unchanged):
+
+* ``--warp_res {1,2,4}`` (or ``--half_res_warp`` = 2): the stacked
+  models' stack warps on that grid;
+* ``--fusion_res 2``: FlowNet2's fusion net on a half-resolution input;
+* ``--f32_features default``: the f32 path's feature layers in TF32 (the
+  JAX package's DEFAULT precision; ``highest``, the default, is exact);
+* ``FLOWNET2_TPU_BF16_INTERCONV=1`` in the environment (the JAX
+  package's switch, read here and passed on as ``bf16_interconv``): the
+  interconvs of FlowNetSD and FlowNet2 follow the bf16 compute dtype.
+  ``export --aot`` bakes it in too, and records it in ``meta.json``.
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
-card raises; on ``cpu`` the bench and the profiler report CPU times);
-``serve`` runs on the device the artifact was exported on.
-Multi-platform artifacts and the approximation knobs other than the
-warps (``--fusion_res``, ``--f32_features``, the bf16 interconvs) are
-not ported yet; ``export --data_parallel`` (replicas one per card)
-waits for a machine with at least two cards.
+card raises; on ``cpu`` the bench and the profiler report CPU times).
+``export --data_parallel`` (replicas one per card) waits for a machine
+with at least two cards.
 """
 
 from __future__ import annotations
@@ -119,7 +128,7 @@ def _train(args):
         eval_every=args.eval_every,
         transfer_flow_dtype=args.transfer_flow_dtype,
         device=args.device,
-        warp_res=_warp_res(args),
+        **_knobs(args),
     )
     trainer = Trainer(cfg)
     eval_loader = None
@@ -198,9 +207,9 @@ def cmd_test(args):
         save_flo=not args.no_flo,
         compute_dtype=args.compute_dtype,
         device=args.device,
-        warp_res=_warp_res(args),
         spatial_tiles=args.spatial_tiles,
         spatial_overlap=args.spatial_overlap,
+        **_knobs(args),
     )
     print(
         json.dumps(
@@ -230,7 +239,7 @@ def cmd_eval(args):
             args.model, params, dataset,
             compute_dtype=args.compute_dtype, limit=args.limit,
             verbose=args.verbose, batch_size=args.eval_batch,
-            device=args.device, warp_res=_warp_res(args),
+            device=args.device, **_knobs(args),
         )
         n = min(len(dataset), args.limit or len(dataset))
     print(json.dumps({
@@ -259,7 +268,7 @@ def _eval_saving_outputs(args, dataset, params):
     cd = compute_dtype_of(args.compute_dtype)
     device = infer.resolve_device(args.device)
     model = infer.inference_model(args.model, params, device, cd,
-                                  _warp_res(args))
+                                  **_knobs(args))
     os.makedirs(args.save_outputs, exist_ok=True)
     n = min(len(dataset), args.limit or len(dataset))
     batch = max(1, int(args.eval_batch))
@@ -343,7 +352,7 @@ def cmd_bench(args):
         iters=args.iters,
         compute_dtype=args.compute_dtype,
         device=args.device,
-        warp_res=_warp_res(args, default=None),
+        **_knobs(args, warp_default=None),
     )
     print(json.dumps(result))
     return 0
@@ -362,7 +371,7 @@ def cmd_profile(args):
         trace_dir=args.trace_dir,
         warp_mode=args.warp_mode,
         device=args.device,
-        warp_res=_warp_res(args, default=None),
+        **_knobs(args, warp_default=None),
     )
     profiler.print_summary(trace_dir, top=args.top)
     print(json.dumps({"trace_dir": trace_dir}))
@@ -403,7 +412,7 @@ def cmd_convert(args):
         # sample pair and require a sane flow
         out["canary"] = semantic_canary(
             args.out, args.model, sample_dir=args.sample_dir,
-            device=device, warp_res=_warp_res(args))
+            device=device, **_knobs(args))
     print(json.dumps(out))
     return 0
 
@@ -459,7 +468,7 @@ def cmd_export(args):
                              args.spatial_tiles, args.spatial_overlap)
         except ValueError as e:
             raise SystemExit(f"export --aot: {e}") from None
-        aot.refuse_unported(args.data_parallel, platforms)
+        aot.refuse_unported(args.data_parallel)
     tree = warmstart.load_params_tree(args.ckpt)
     if args.aot:
         if shapes is not None:
@@ -467,7 +476,7 @@ def cmd_export(args):
                 args.model, tree, shapes, args.out,
                 compute_dtype=args.compute_dtype,
                 warp_mode=args.warp_mode, platforms=platforms,
-                device=args.device,
+                device=args.device, bf16_interconv=args.bf16_interconv,
             )
         else:
             meta = aot.export_serving(
@@ -477,6 +486,7 @@ def cmd_export(args):
                 data_parallel=args.data_parallel,
                 spatial_tiles=args.spatial_tiles,
                 spatial_overlap=args.spatial_overlap, device=args.device,
+                bf16_interconv=args.bf16_interconv,
             )
         print(json.dumps({"out": args.out, **meta}))
         return 0
@@ -523,7 +533,7 @@ def cmd_serve(args):
     from flownet2_tf_tpu_torch.utils.flowlib import write_flow_outputs
     from flownet2_tf_tpu_torch.utils.image_io import load_image_pair
 
-    model = load_serving(args.artifact)
+    model = load_serving(args.artifact, device=args.device)
     a, b = load_image_pair(args.input_a, args.input_b)
     flow = model.infer_pair(a, b)
     write_flow_outputs(flow, args.out, args.input_a,
@@ -751,8 +761,10 @@ def build_parser():
     )
     p.add_argument(
         "--platforms", default=None,
-        help="the export device's type (cuda or cpu); several platforms "
-             "in one artifact are not ported yet",
+        help="comma list of cuda and cpu (e.g. cuda,cpu): one graph per "
+             "platform in one artifact, each traced on a device of its "
+             "type, one copy of the weights; default: the --device's "
+             "alone. cuda needs a card here",
     )
     p.add_argument("--data_parallel", type=int, default=0,
                    help="N > 1 places N replicas one per card: waits for a "
@@ -790,6 +802,11 @@ def build_parser():
     p.add_argument("--out", required=True, help="output directory")
     p.add_argument("--no_image", action="store_true")
     p.add_argument("--no_flo", action="store_true")
+    p.add_argument("--device", default=None,
+                   help="the platform whose graph to serve (cuda, cuda:N "
+                        "or cpu); default: cuda when the artifact has a "
+                        "cuda graph, else its one platform. cuda without "
+                        "a GPU raises: no other platform's graph stands in")
     p.set_defaults(fn=cmd_serve)
     return parser
 
@@ -812,14 +829,19 @@ def _add_model_arg(p):
     )
     p.add_argument(
         "--f32_features", default=None, choices=["highest", "default"],
-        help="precision of the f32 feature convs: highest (the default, "
-             "the parity setting); 'default' is not ported yet (ROADMAP "
-             "Queue 1 item 18)",
+        help="precision of the f32 path's feature convs and deconvs: "
+             "highest (the default, the parity setting: full f32); "
+             "default runs them in TF32 on the card (flow heads, "
+             "upsamplers and interconvs stay full f32; exact f32 on the "
+             "CPU, which has no TF32; the backward stays full f32)",
     )
     p.add_argument(
         "--fusion_res", default=None, type=int, choices=[1, 2],
         help="FlowNet2 fusion-net grid factor: 1 exact (the default); 2 "
-             "is not ported yet (ROADMAP Queue 1 item 18)",
+             "runs the fusion net on a half-resolution input (pooled "
+             "images, half-res branch flows, warps and errors) and "
+             "resizes only its final flow back up, an approximation; "
+             "other models run unchanged",
     )
 
 
@@ -832,17 +854,15 @@ def _warp_res(args, default=1):
     return 2 if args.half_res_warp else default
 
 
-def _refuse_unported_knobs(args):
-    """SystemExit for the approximation knobs the port does not have."""
-    if getattr(args, "f32_features", None) not in (None, "highest"):
-        raise SystemExit(
-            f"--f32_features {args.f32_features} is not ported yet "
-            "(ROADMAP Queue 1 item 18); the f32 path runs at full f32 "
-            "precision (TF32 off)")
-    if getattr(args, "fusion_res", None) not in (None, 1):
-        raise SystemExit(
-            f"--fusion_res {args.fusion_res} (half-res fusion) is not "
-            "ported yet (ROADMAP Queue 1 item 18)")
+def _knobs(args, warp_default=1):
+    """The model knobs a model subcommand was given, as the keyword
+    arguments of the port's entry points (``warp_res`` with
+    ``warp_default`` when no warp flag is given)."""
+    return {"warp_res": _warp_res(args, warp_default),
+            "fusion_res": args.fusion_res or 1,
+            "bf16_interconv": args.bf16_interconv,
+            "f32_features": args.f32_features or "highest"}
+
 
 
 def _add_device_arg(p):
@@ -853,7 +873,10 @@ def _add_device_arg(p):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    _refuse_unported_knobs(args)
+    # the JAX package's switch, read in this one place and passed on as
+    # the bf16_interconv argument
+    args.bf16_interconv = (
+        os.environ.get("FLOWNET2_TPU_BF16_INTERCONV", "0") == "1")
     return args.fn(args)
 
 

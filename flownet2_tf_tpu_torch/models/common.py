@@ -18,11 +18,20 @@ Mixed precision (the JAX package's ``_conv_io_dtypes``): every layer's
 ``forward`` takes the model's ``compute_dtype`` (None or float32: the f32
 path; bfloat16: the bf16 policy). Under bf16 a feature layer (``act``)
 casts its input, weights and bias to bf16 and returns bf16; a flow head,
-flow upsampler or interconv (``act=False``) runs in f32. The parameters
-stay f32 masters (training) unless :func:`cast_params_for_inference`
-pre-cast the feature layers' (serving). ``torch.autocast`` is not used:
-its op lists would put the f32 layers in bf16. The S2D head transforms
-are TPU layout work and are not ported.
+flow upsampler or interconv (``act=False``) runs in f32, except an
+interconv built with ``interconv=True`` (the models' ``bf16_interconv``,
+the JAX package's ``get_bf16_interconv``), which follows the compute
+dtype. The parameters stay f32 masters (training) unless
+:func:`cast_params_for_inference` pre-cast the layers that follow the
+compute dtype (serving). ``torch.autocast`` is not used: its op lists
+would put the f32 layers in bf16. The S2D head transforms are TPU layout
+work and are not ported.
+
+Feature precision on the f32 path (:func:`set_f32_features`, the JAX
+package's ``get_f32_features_precision``): ``"highest"`` (the default)
+runs every conv in full f32; ``"default"`` lets cuDNN run the feature
+layers (``act``) in TF32, flow heads, upsamplers and interconvs staying
+full f32.
 """
 
 from __future__ import annotations
@@ -205,9 +214,11 @@ def endpoint_error_mean(labels, predictions):
     return torch.mean(torch.sqrt(sq + 1e-12))
 
 
-def io_dtype(compute_dtype, act: bool) -> torch.dtype:
+def io_dtype(compute_dtype, act: bool, interconv: bool = False
+             ) -> torch.dtype:
     """The dtype a layer computes in (``_conv_io_dtypes``): the compute
-    dtype for a feature layer (``act``) under the bf16 policy, else f32.
+    dtype for a feature layer (``act``), or an interconv that follows it
+    (``interconv``), under the bf16 policy; else f32.
 
     A bf16 conv returns bf16 (cuDNN accumulates in f32 inside), so each
     conv's output dtype equals its operands' and autograd's transposed
@@ -219,7 +230,31 @@ def io_dtype(compute_dtype, act: bool) -> torch.dtype:
             f"compute_dtype {compute_dtype}: the torch port runs float32 "
             "or bfloat16"
         )
-    return compute_dtype if act else torch.float32
+    return compute_dtype if act or interconv else torch.float32
+
+
+def set_f32_features(module: nn.Module, mode: str = "highest"):
+    """Set the feature precision of ``module``'s layers on the f32 path:
+    ``"default"`` runs each feature layer (``act``, convs and deconvs) in
+    TF32, ``"highest"`` in full f32. Returns ``module``.
+
+    The JAX package's ``'default'`` lowers those convs at XLA's DEFAULT
+    precision, which rounds the operands to bf16 (8 mantissa bits); TF32
+    keeps 10, so the port's ``'default'`` is the closer of the two to the
+    exact path. On the CPU there is no TF32: ``'default'`` is bitwise
+    ``'highest'`` there. The flag covers each layer's forward only:
+    autograd's backward convs run after the forward has returned, in
+    ``f32_policy``'s full f32. It is process state, not a graph node, so
+    a ``torch.export`` graph does not carry it (an artifact serves the
+    exact features)."""
+    if mode not in ("highest", "default"):
+        raise ValueError(f"f32 features precision must be 'highest'|"
+                         f"'default', got {mode!r}")
+    tf32 = mode == "default"
+    for layer in module.modules():
+        if isinstance(layer, (Conv, Deconv)):
+            layer.tf32 = tf32 and layer.act
+    return module
 
 
 def check_f32_master(layer, io: torch.dtype):
@@ -231,16 +266,27 @@ def check_f32_master(layer, io: torch.dtype):
     if io == torch.float32 and layer.weights.dtype == torch.bfloat16:
         raise ValueError(
             f"{layer!r}: f32-policy layer holds bfloat16 weights; the "
-            "module was pre-cast for another policy. Reload the f32 "
-            "weights, and pre-cast with cast_params_for_inference only for "
-            "bf16 inference"
+            "module was pre-cast for another policy (or another "
+            "bf16_interconv setting). Reload the f32 weights, and pre-cast "
+            "with cast_params_for_inference only for bf16 inference"
         )
 
 
 def _layer_forward(layer, x, compute_dtype, op, **kw):
-    io = io_dtype(compute_dtype, layer.act)
+    io = io_dtype(compute_dtype, layer.act, layer.interconv)
     check_f32_master(layer, io)
-    y = op(x.to(io), layer.weights.to(io), layer.biases.to(io), **kw)
+    args = (x.to(io), layer.weights.to(io), layer.biases.to(io))
+    if layer.tf32 and io == torch.float32:
+        # the feature layer's TF32 (set_f32_features), inside f32_policy,
+        # whose deterministic algorithms stay on
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            y = op(*args, **kw)
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+    else:
+        y = op(*args, **kw)
     return leaky_relu(y) if layer.act else y
 
 
@@ -248,15 +294,21 @@ class Conv(nn.Module):
     """Caffe-padded k x k conv, stride s, + optional LeakyReLU.
 
     ``weights``: (out, in, k, k); the JAX package stores HWIO.
+    ``interconv``: an unactivated interconv that follows the compute dtype
+    under the bf16 policy (the models' ``bf16_interconv``); its flow head
+    stays f32. ``tf32``: see :func:`set_f32_features`.
     """
 
+    tf32 = False
+
     def __init__(self, k: int, cin: int, cout: int, stride: int = 1,
-                 act: bool = True):
+                 act: bool = True, interconv: bool = False):
         super().__init__()
         self.weights = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.biases = nn.Parameter(torch.zeros(cout))
         self.stride = stride
         self.act = act
+        self.interconv = interconv
 
     @staticmethod
     def from_jax(w):
@@ -275,7 +327,8 @@ class Conv(nn.Module):
 
     def extra_repr(self):
         o, i, k, _ = self.weights.shape
-        return f"{i}->{o}, k={k}, stride={self.stride}, act={self.act}"
+        return (f"{i}->{o}, k={k}, stride={self.stride}, act={self.act}"
+                + (", interconv=True" if self.interconv else ""))
 
     def forward(self, x, compute_dtype=None):
         k = self.weights.shape[-1]
@@ -292,6 +345,9 @@ class Deconv(nn.Module):
     conv with pad 2; that conv equals ``conv_transpose2d`` of the
     spatially flipped kernel with padding 1 (ROADMAP trap C2).
     """
+
+    interconv = False  # no deconv is an interconv
+    tf32 = False
 
     def __init__(self, cin: int, cout: int, act: bool = True, k: int = 4):
         super().__init__()
@@ -386,17 +442,21 @@ def deconv_subpixel(x, w, b):
 
 def cast_params_for_inference(module: nn.Module,
                               compute_dtype=torch.bfloat16) -> nn.Module:
-    """Pre-cast, in place, the feature layers' (``act``) weights and biases
-    to the bf16 compute dtype, for serving: each forward then skips the
-    f32 -> bf16 weight casts and reads half the weight bytes, with outputs
-    bitwise equal (bf16(w) == bf16(bf16(w))). Flow heads, flow upsamplers
-    and interconvs keep f32, the JAX package's ``_F32_LAYER_MARKERS``.
+    """Pre-cast, in place, the weights and biases of the layers that follow
+    the compute dtype (feature layers, ``act``; interconvs built with
+    ``interconv=True``) to the bf16 compute dtype, for serving: each
+    forward then skips the f32 -> bf16 weight casts and reads half the
+    weight bytes, with outputs bitwise equal (bf16(w) == bf16(bf16(w))).
+    Flow heads, flow upsamplers and the other interconvs keep f32, the
+    JAX package's ``_F32_LAYER_MARKERS`` (less ``"interconv"`` when its
+    knob is on).
 
     Inference only: the trainer keeps f32 masters. ``to_jax_params`` (and
     so a checkpoint) still returns f32. Returns ``module``."""
     with torch.no_grad():
         for layer in module.modules():
-            if isinstance(layer, (Conv, Deconv)) and layer.act:
+            if (isinstance(layer, (Conv, Deconv))
+                    and (layer.act or layer.interconv)):
                 for p in (layer.weights, layer.biases):
                     p.data = p.data.to(compute_dtype)
     return module

@@ -43,7 +43,11 @@ SKIP = {5: "conv5_1", 4: "conv4_1", 3: "conv3_1", 2: "conv2_1"}
 
 
 class FlowNetSD(nn.Module):
-    def __init__(self, input_channels: int = 6):
+    """``bf16_interconv``: the interconvs follow the bf16 compute dtype
+    instead of running f32 (``models/common.py::Conv``); their flow heads
+    stay f32."""
+
+    def __init__(self, input_channels: int = 6, bf16_interconv: bool = False):
         super().__init__()
         cin = input_channels
         for name, k, stride, cout in ENCODER:
@@ -60,14 +64,15 @@ class FlowNetSD(nn.Module):
             concat_ch = enc_ch[SKIP[lvl]] + DECONV_CH[lvl] + 2
             self.add_module(f"interconv{lvl}",
                             common.Conv(3, concat_ch, INTERCONV_CH[lvl],
-                                        act=False))
+                                        act=False, interconv=bf16_interconv))
             self.add_module(f"predict_flow{lvl}",
                             common.predict_flow(INTERCONV_CH[lvl]))
             prev_ch = concat_ch
 
     def forward(self, inputs, compute_dtype=None):
         """``compute_dtype`` as in ``FlowNetS.forward``; the interconvs
-        are f32 layers and take the bf16 concat in f32."""
+        are f32 layers and take the bf16 concat in f32, unless built with
+        ``bf16_interconv``."""
         cd = compute_dtype
         if isinstance(inputs, dict):
             x = torch.cat([inputs["input_a"], inputs["input_b"]], dim=-1)

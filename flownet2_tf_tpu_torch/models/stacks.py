@@ -23,9 +23,13 @@ stay f32; only the concats that feed the next net are cast to bf16.
 Every stack warp runs at the model's ``warp_res``, set at construction
 (``ModelSpec.build(device, warp_res=...)``): 1, the default, is the exact
 full-resolution warp; 2 is the JAX package's half-res serving preset
-(``ops/flow_warp.py::flow_warp_coarse``), 4 a quarter-res grid. The S2D
-assemblies and the half-resolution fusion input are TPU layout or
-approximation work and are not ported.
+(``ops/flow_warp.py::flow_warp_coarse``), 4 a quarter-res grid.
+FlowNet2's ``fusion_res=2`` (the JAX package's ``use_fusion_res(2)``)
+runs the whole fusion net on a half-resolution input assembly
+(:func:`_fusion_input_halfres`) and resizes only its final flow back up;
+``bf16_interconv`` lets its interconvs (and FlowNetSD's) follow the bf16
+compute dtype. The S2D assemblies are TPU layout work and are not
+ported.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from flownet2_tf_tpu_torch.models import common, flownet_c, flownet_s, flownet_s
 from flownet2_tf_tpu_torch.models.base import FLOW_SCALE, multiscale_loss
 from flownet2_tf_tpu_torch.ops.flow_warp import (
     check_warp_res,
+    pool2,
     stack_warp,
     stack_warp_multi,
 )
@@ -135,12 +140,73 @@ def _double_warp(input_b, flow_a, flow_b, warp_res=1):
             torch.cat([p[1:2] for p in pairs]))
 
 
+FUSION_RES = (1, 2)
+
+
+def _brightness_errors(input_a, input_b, flow_css, flow_sd, warp_res):
+    """``input_b`` warped by both branch flows (one double warp at
+    ``warp_res``) -> each warp's brightness error against ``input_a``."""
+    warped_css, warped_sd = _double_warp(input_b, flow_css, flow_sd,
+                                         warp_res)
+    return (common.channel_norm(input_a - warped_css),
+            common.channel_norm(input_a - warped_sd))
+
+
+def _fusion_input(image, flow_css, flow_sd, err_css, err_sd, dt):
+    """The 11-channel NHWC fusion input ``[image, flow_css * 0.05,
+    flow_sd * 0.05, |flow_css|, |flow_sd|, err_css, err_sd]`` (the order
+    of trap C3), cast to ``dt``."""
+    return torch.cat(
+        [t.to(dt) for t in (image, flow_css * FLOW_SCALE,
+                            flow_sd * FLOW_SCALE,
+                            common.channel_norm(flow_css),
+                            common.channel_norm(flow_sd), err_css, err_sd)],
+        dim=-1,
+    )
+
+
+def _fusion_input_halfres(input_a, input_b, preds_css, preds_sd, dt):
+    """The fusion input built at half resolution (``fusion_res=2``, the
+    JAX package's ``_fusion_input_halfres``):
+
+    * the images 2x2 area-pooled (``ops/flow_warp.py::pool2``);
+    * each branch flow as ``resize(predict_flow2 * 20, h/2, w/2)``, the
+      half-res form of its full-res flow, in full-res pixels;
+    * one exact double warp of the pooled ``input_b`` on the half grid by
+      the flows halved into half-grid pixels, whatever the model's
+      ``warp_res`` is;
+    * brightness errors and magnitudes on the half grid.
+
+    The pooled images sit at full-res 2j + 0.5 while the resized flows
+    sit at 2j: a fixed quarter-pixel registration offset that the JAX
+    assembly keeps, and so does this one (the coarse warps' offset
+    compensation, ``_coarse_flow``, does not apply here)."""
+    n, h, w, _ = input_a.shape
+    a_h, b_h = pool2(input_a), pool2(input_b)
+    f_css, f_sd = (resize_bilinear_tf1(p["predict_flow2"] * 20.0, h // 2,
+                                       w // 2) for p in (preds_css, preds_sd))
+    # only the warp's displacement is halved: the concat's flows and
+    # magnitudes stay in full-res pixels
+    errs = _brightness_errors(a_h, b_h, f_css * 0.5, f_sd * 0.5, 1)
+    return _fusion_input(a_h, f_css, f_sd, *errs, dt)
+
+
 class FlowNet2(nn.Module):
-    def __init__(self, warp_res: int = 1):
+    """``fusion_res``: 1 (exact) or 2 (the fusion net on a half-res input,
+    :func:`_fusion_input_halfres`; ``predict_flow0`` comes out at half
+    resolution). ``bf16_interconv``: the interconvs of FlowNetSD and of
+    the fusion net follow the bf16 compute dtype."""
+
+    def __init__(self, warp_res: int = 1, fusion_res: int = 1,
+                 bf16_interconv: bool = False):
         super().__init__()
+        if fusion_res not in FUSION_RES:
+            raise ValueError(f"fusion_res must be one of {FUSION_RES}, got "
+                             f"{fusion_res!r}")
         self.warp_res = warp_res
+        self.fusion_res = fusion_res
         self.FlowNetCSS = FlowNetCSS(warp_res)
-        self.FlowNetSD = flownet_sd.FlowNetSD()
+        self.FlowNetSD = flownet_sd.FlowNetSD(bf16_interconv=bf16_interconv)
         cin = FUSION_IN_CHANNELS
         for name, k, stride, cout, act in FUSION:
             self.add_module(name, common.Conv(k, cin, cout, stride, act))
@@ -149,12 +215,14 @@ class FlowNet2(nn.Module):
         self.fuse_deconv1 = common.Deconv(128, 32)
         self.fuse_upsample_flow2to1 = common.Deconv(2, 2, act=False)
         concat1_ch = 128 + 32 + 2  # fuse_conv1_1 + fuse_deconv1 + upflow
-        self.fuse_interconv1 = common.Conv(3, concat1_ch, 32, act=False)
+        self.fuse_interconv1 = common.Conv(3, concat1_ch, 32, act=False,
+                                           interconv=bf16_interconv)
         self.predict_flow1 = common.predict_flow(32)
         self.fuse_deconv0 = common.Deconv(concat1_ch, 16)
         self.fuse_upsample_flow1to0 = common.Deconv(2, 2, act=False)
         concat0_ch = 64 + 16 + 2  # fuse_conv0 + fuse_deconv0 + upflow
-        self.fuse_interconv0 = common.Conv(3, concat0_ch, 16, act=False)
+        self.fuse_interconv0 = common.Conv(3, concat0_ch, 16, act=False,
+                                           interconv=bf16_interconv)
         self.predict_flow0 = common.predict_flow(16)
 
     def forward(self, inputs, compute_dtype=None):
@@ -169,27 +237,14 @@ class FlowNet2(nn.Module):
         flow_css = preds_css["flow"]
         flow_sd = preds_sd["flow"]
 
-        warped_css, warped_sd = _double_warp(input_b, flow_css, flow_sd,
-                                             self.warp_res)
-        err_css = common.channel_norm(input_a - warped_css)
-        err_sd = common.channel_norm(input_a - warped_sd)
-        mag_css = common.channel_norm(flow_css)
-        mag_sd = common.channel_norm(flow_sd)
         dt = cd or input_a.dtype
-        x = torch.cat(
-            [
-                t.to(dt) for t in (
-                    input_a,
-                    flow_css * FLOW_SCALE,
-                    flow_sd * FLOW_SCALE,
-                    mag_css,
-                    mag_sd,
-                    err_css,
-                    err_sd,
-                )
-            ],
-            dim=-1,
-        )
+        if self.fusion_res == 2:
+            x = _fusion_input_halfres(input_a, input_b, preds_css, preds_sd,
+                                      dt)
+        else:
+            errs = _brightness_errors(input_a, input_b, flow_css, flow_sd,
+                                      self.warp_res)
+            x = _fusion_input(input_a, flow_css, flow_sd, *errs, dt)
         with common.f32_policy(cd), common.scope("fusion"):
             preds = self._fusion_head(common.nchw(x, cd), cd)
         preds["flow"] = resize_bilinear_tf1(

@@ -100,6 +100,14 @@ def _pool(x, k):
     return x.reshape(n, h // k, k, w // k, k, c).mean(dim=(2, 4))
 
 
+def pool2(x):
+    """The exact 2x2 area mean of NHWC ``x`` in f32: the half-res fusion
+    input's image pool (the JAX package's ``_pool2``). Unlike the coarse
+    warps below, its users keep the pooled grid's quarter-pixel offset
+    (``models/stacks.py::_fusion_input_halfres``)."""
+    return _pool(_float_image(x), 2)
+
+
 def _coarse_flow(flow_pooled, k):
     """A k-pooled flow in coarse-grid pixels, compensating the pooled
     grid's (k-1)/2-px offset: pooled pixel j sits at full-res k*j +

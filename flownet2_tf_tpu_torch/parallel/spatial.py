@@ -84,13 +84,14 @@ def forward_tiles(model, tiles_a, tiles_b, compute_dtype):
 
 def infer_flow_spatial(model_name, params, image_a, image_b, n_tiles=None,
                        overlap: int = 128, device="cuda",
-                       compute_dtype="float32", warp_res=1):
+                       compute_dtype="float32", warp_res=1, **knobs):
     """Tiled flow inference: the bands run as one batch on ``device``.
 
     ``image_a/b``: (H, W, 3) float arrays in [0, 1]; W must be %64 (pad
     with ``training.infer.pad_to_multiple`` first if needed). ``params``:
     a JAX-layout tree. ``n_tiles=None`` means one band per device, which
-    is one here. Returns the (H, W, 2) f32 flow as a numpy array.
+    is one here. ``knobs``: ``training/infer.py::load_model``'s other
+    knobs. Returns the (H, W, 2) f32 flow as a numpy array.
     """
     if n_tiles is None:
         n_tiles = 1
@@ -105,7 +106,8 @@ def infer_flow_spatial(model_name, params, image_a, image_b, n_tiles=None,
             f"infer_flow_spatial requires W % 64 == 0, got W={a.shape[2]}; "
             "edge-pad with training.infer.pad_to_multiple and crop the "
             "flow back")
-    model = inference_model(model_name, params, device, cd, warp_res)
+    model = inference_model(model_name, params, device, cd, warp_res,
+                            **knobs)
     with torch.inference_mode():
         tiles_a, core, offsets, h = extract_tiles(a, n_tiles, overlap)
         tiles_b, _, _, _ = extract_tiles(b, n_tiles, overlap)

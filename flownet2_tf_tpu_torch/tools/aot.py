@@ -6,15 +6,19 @@ ahead of time, with the weights as inputs (``torch.func.functional_call``),
 and written with the weights into one ``.flowpak`` zip:
 
     exported.pt2   torch.export.save of fn (the graph only, no weights);
-                   ``exported_{i}.pt2`` per entry of a bundle
+                   ``exported_{i}.pt2`` per entry of a bundle; in a
+                   multi-platform artifact one graph per platform,
+                   ``exported-{platform}.pt2`` (``exported_{i}-cuda.pt2``)
     params.npz     flat weight arrays, the JAX package's layout and
                    ``warmstart.flatten`` naming; bf16 leaves stored as
                    uint16 bit patterns: the JAX artifact's params.npz,
-                   key for key and bit for bit
+                   key for key and bit for bit; one copy for all platforms
     meta.json      the JAX artifact's keys: model, shapes, compute dtype,
-                   warp mode, platforms (the export device: ``["cuda"]``
-                   or ``["cpu"]``), data_parallel, spatial_tiles,
-                   fusion_res, bf16-leaf manifest
+                   warp mode, platforms (the device types the graphs were
+                   traced on, in the order given: ``["cuda", "cpu"]``),
+                   data_parallel, spatial_tiles, fusion_res, bf16-leaf
+                   manifest; ``bf16_interconv: true`` when the interconvs
+                   were baked in bf16
 
 Each ``.pt2`` also holds ``layouts.json``, the kind of each weight
 (``conv``, ``deconv`` or ``bias``), which says how the loader turns the
@@ -26,19 +30,30 @@ trap C2).
 It needs the correlation op's registration
 (``ops/cuda/correlation_kernel.py``), whose CUDA kernel the graph calls
 once per forward. Serving choices are baked in at export: bf16 weights
-pre-cast (``models/common.py::cast_params_for_inference``) and the stack
+pre-cast (``models/common.py::cast_params_for_inference``), the stack
 warps' grid (``warp_mode`` half -> ``warp_res`` 2, quarter -> 4, full ->
-1). TF32 is process state, not a graph node, so every call runs inside
-``f32_policy`` (TF32 off), as the eager models do.
+1), FlowNet2's fusion grid (``fusion_res``) and the bf16 interconvs
+(``bf16_interconv``), each recorded in ``meta.json``. TF32 is process
+state, not a graph node, so every call runs inside ``f32_policy`` (TF32
+off), as the eager models do, and an artifact always serves the exact f32
+features (``export`` takes no ``f32_features``, as in the JAX package).
+
+A torch graph bakes its device in at trace time (the warps' reads differ
+on CUDA and on the CPU, trap C10; ``arange``/``zeros`` carry a device),
+so where the JAX package lowers one StableHLO for every platform, a
+multi-platform artifact (``platforms=["cuda", "cpu"]``) holds one graph
+per platform, each traced on a device of its type, and one shared
+``params.npz``. :func:`load_serving` deserializes only the chosen
+platform's graphs. The CUDA graph calls the hand-written correlation
+kernel, the CPU graph the op's plain CPU version.
 
 Exports are shape-specialized: H and W multiples of 64, one static
 (batch, H, W) per graph; a bundle holds several graphs and one copy of
 the weights. ``spatial_tiles=N`` freezes halo-banded tiling into a
 single-pair graph (``parallel/spatial.py``: ``extract_tiles``, the model
 on the N bands as one batch, ``stitch_tiles``), run on the export device.
-Multi-platform and half-res fusion exports are not ported yet (ROADMAP
-Queue 1 items 16 and 18), and data-parallel exports (replicas one per
-card) wait for a machine with at least two cards.
+Data-parallel exports (replicas one per card) wait for a machine with at
+least two cards.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ FORMAT_VERSION = 1
 BUNDLE_FORMAT_VERSION = 2
 
 WARP_RES = {"full": 1, "half": 2, "quarter": 4}
+PLATFORMS = ("cuda", "cpu")
 LAYOUTS_FILE = "layouts.json"
 
 # JAX layout -> the graph's, per layer kind: the two transforms of
@@ -98,22 +114,13 @@ def check_tiling(batch=1, data_parallel=0, spatial_tiles=0,
             raise ValueError("overlap must be a multiple of 32")
 
 
-def refuse_unported(data_parallel=0, platforms=None, fusion_res=1):
-    """SystemExit for the export options the port does not have yet."""
+def refuse_unported(data_parallel=0):
+    """SystemExit for the export option the port does not have yet."""
     if data_parallel and int(data_parallel) > 1:
         raise SystemExit(
             f"export --data_parallel {data_parallel} is not ported yet: "
             "placing the replicas one per card waits for a machine with at "
             "least two cards (ROADMAP Queue 1 item 16)")
-    if platforms is not None and len(platforms) > 1:
-        raise SystemExit(
-            f"export --platforms {','.join(platforms)}: multi-platform "
-            "artifacts are not ported yet (ROADMAP Queue 1 item 16); "
-            "export once per device")
-    if int(fusion_res) != 1:
-        raise SystemExit(
-            "fusion_res=2 (half-res fusion) is not ported yet (ROADMAP "
-            "Queue 1 item 18)")
 
 
 def _check_shape(height, width):
@@ -167,10 +174,13 @@ class _ServingForward(nn.Module):
         return preds["flow"]
 
 
-def _serving_forward(model_name, tree, compute_dtype, warp_mode, device):
-    """(forward module, params by name, layouts, encoded params): the
-    model built at ``warp_mode``'s grid on ``device``, filled from the
-    JAX-layout ``tree``, its feature layers pre-cast for bf16."""
+def _serving_forward(model_name, tree, compute_dtype, warp_mode, device,
+                     fusion_res=1, bf16_interconv=False):
+    """(forward module, params by name, layouts): the model built with
+    ``warp_mode``'s grid and the knobs on ``device``, filled from the
+    JAX-layout ``tree``, the layers that follow the compute dtype
+    pre-cast for bf16. A model ignores the knobs it does not read (as in
+    the JAX package, whose knobs such a model never reads)."""
     from flownet2_tf_tpu_torch.models.common import (
         cast_params_for_inference,
         compute_dtype_of,
@@ -179,17 +189,27 @@ def _serving_forward(model_name, tree, compute_dtype, warp_mode, device):
     from flownet2_tf_tpu_torch.training.warmstart import load_jax_params
 
     cd = compute_dtype_of(compute_dtype)
-    spec = get_model(model_name)
-    # a model without stack warps has nothing to coarsen (as in the JAX
-    # package, whose knob such a model never reads)
-    warp_res = spec.warp_res_for(warp_res_of(warp_mode))
-    model = spec.build(device, warp_res=warp_res)
+    model = get_model(model_name).build_for(
+        device, warp_res=warp_res_of(warp_mode), fusion_res=fusion_res,
+        bf16_interconv=bf16_interconv)
     load_jax_params(model, tree)
     if cd == torch.bfloat16:
         cast_params_for_inference(model, cd)
     params = {k: p.detach() for k, p in model.named_parameters()}
-    return (_ServingForward(model, cd), params, _layouts(model),
-            _encode_params(model))
+    return _ServingForward(model, cd), params, _layouts(model)
+
+
+def _knob_meta(model_name, compute_dtype, fusion_res, bf16_interconv):
+    """(``fusion_res`` the model runs, ``{"bf16_interconv": True}`` when
+    the interconvs were baked in bf16, else ``{}``) for ``meta.json``:
+    an approximation baked into an artifact is named there."""
+    from flownet2_tf_tpu_torch.models.registry import get_model
+
+    spec = get_model(model_name)
+    baked = (bool(bf16_interconv) and spec.interconvs
+             and compute_dtype == "bfloat16")
+    return (spec.fusion_res_for(fusion_res),
+            {"bf16_interconv": True} if baked else {})
 
 
 def _layouts(model):
@@ -250,15 +270,41 @@ def _export_one(forward, params, layouts, height, width, batch, device):
     return buf.getvalue()
 
 
-def _export_device(device, platforms):
+def _export_devices(device, platforms):
+    """The devices to trace the graphs on, one per platform: ``device``
+    alone when ``platforms`` is None, else each of ``platforms`` (``cuda``
+    or ``cpu``, in the order given; ``device`` itself where its type is
+    the platform, so ``cuda:1`` keeps its index). Raises before anything
+    is built when a platform is unknown or named twice, or when its
+    device is absent: a graph is traced on its platform's device, and no
+    partial artifact is written."""
     from flownet2_tf_tpu_torch.training.infer import resolve_device
 
-    device = resolve_device(device)
-    if platforms is not None and list(platforms) != [device.type]:
-        raise ValueError(
-            f"platforms {list(platforms)} do not name the export device "
-            f"{device}: an artifact runs on the device it was exported on")
-    return device
+    if platforms is None:
+        return [resolve_device(device)]
+    device = torch.device(device)
+    platforms = [str(p) for p in platforms]
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if not platforms or unknown or len(set(platforms)) != len(platforms):
+        raise ValueError(f"platforms {platforms}: each of {PLATFORMS} at "
+                         "most once")
+    devices = [device if device.type == p else torch.device(p)
+               for p in platforms]
+    if "cuda" in platforms and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"platforms {platforms}: the cuda graph is traced on a card, "
+            "and torch.cuda.is_available() is False here; export "
+            "--platforms cpu on this machine, or export on one with a card")
+    return devices
+
+
+def _graph_name(stem, platform, platforms):
+    """``{stem}.pt2`` in a one-platform artifact (the files of a
+    single-device export), ``{stem}-{platform}.pt2`` in a multi-platform
+    one."""
+    if len(platforms) == 1:
+        return f"{stem}.pt2"
+    return f"{stem}-{platform}.pt2"
 
 
 def _write(out_path, graphs, params_bytes, meta):
@@ -271,34 +317,61 @@ def _write(out_path, graphs, params_bytes, meta):
         z.writestr("meta.json", json.dumps(meta, indent=1))
 
 
+def _export_graphs(model_name, tree, compute_dtype, warp_mode, devices,
+                   entries, **knobs):
+    """[(file name, .pt2 bytes)] of every platform's graphs, and the
+    encoded weights (taken once: every platform's are the same tree).
+    ``entries``: [(stem, (height, width, batch), wrap)], ``wrap`` turning
+    the serving forward into the one to trace (or None)."""
+    platforms = [d.type for d in devices]
+    graphs, encoded = [], None
+    for device in devices:
+        forward, tensors, layouts = _serving_forward(
+            model_name, tree, compute_dtype, warp_mode, device, **knobs)
+        if encoded is None:
+            encoded = _encode_params(forward.model)
+        for stem, (h, w, b), wrap in entries:
+            graphs.append((_graph_name(stem, device.type, platforms),
+                           _export_one(wrap(forward) if wrap else forward,
+                                       tensors, layouts, h, w, b, device)))
+    return graphs, encoded
+
+
 def export_serving(model_name, params, height, width, out_path, batch=1,
                    compute_dtype="bfloat16", warp_mode="half",
                    platforms=None, data_parallel=0, spatial_tiles=0,
-                   spatial_overlap=128, fusion_res=1, device="cuda"):
+                   spatial_overlap=128, fusion_res=1, device="cuda",
+                   bf16_interconv=False):
     """Export one shape-specialized serving forward to ``out_path``
-    (.flowpak), on ``device``, from a JAX-layout parameter tree.
+    (.flowpak), from a JAX-layout parameter tree.
 
     ``warp_mode='half'`` bakes the half-res stack-warp serving preset;
-    ``'full'`` keeps exact warps (the parity path). ``platforms``, if
-    given, must name the export device's type. ``spatial_tiles=N`` (N >
-    1, batch 1, exclusive with ``data_parallel``) freezes halo-banded
-    tiling into the graph, the N bands run as one batch on the export
-    device (the JAX package places one per chip). ``data_parallel`` > 1,
-    ``fusion_res=2`` and several platforms are not ported and raise
+    ``'full'`` keeps exact warps (the parity path). ``fusion_res=2``
+    bakes FlowNet2's half-res fusion, ``bf16_interconv`` its bf16
+    interconvs under the bf16 policy; ``meta.json`` records both.
+    ``platforms``: None traces one graph on ``device``; a list of
+    ``cuda``/``cpu`` traces one graph per platform into one artifact
+    (``_export_devices``). ``spatial_tiles=N`` (N > 1, batch 1, exclusive
+    with ``data_parallel``) freezes halo-banded tiling into the graph,
+    the N bands run as one batch on the export device (the JAX package
+    places one per chip). ``data_parallel`` > 1 is not ported and raises
     ``SystemExit``. Returns the metadata.
     """
     check_tiling(batch, data_parallel, spatial_tiles, spatial_overlap)
-    refuse_unported(data_parallel, platforms, fusion_res)
+    refuse_unported(data_parallel)
     _check_shape(height, width)
     dp, sp = int(data_parallel or 0), int(spatial_tiles or 0)
-    device = _export_device(device, platforms)
-    forward, tensors, layouts, (params_bytes, bf16_leaves) = (
-        _serving_forward(model_name, params, compute_dtype, warp_mode,
-                         device))
+    devices = _export_devices(device, platforms)
+    wrap = None
     if sp > 1:
-        forward = _SpatialServingForward(forward, sp, spatial_overlap)
-    graph = _export_one(forward, tensors, layouts, height, width, batch,
-                        device)
+        def wrap(forward):
+            return _SpatialServingForward(forward, sp, spatial_overlap)
+    graphs, (params_bytes, bf16_leaves) = _export_graphs(
+        model_name, params, compute_dtype, warp_mode, devices,
+        [("exported", (height, width, batch), wrap)],
+        fusion_res=fusion_res, bf16_interconv=bf16_interconv)
+    fusion_k, interconv_meta = _knob_meta(model_name, compute_dtype,
+                                          fusion_res, bf16_interconv)
     meta = {
         "format_version": FORMAT_VERSION,
         "model": model_name,
@@ -307,27 +380,30 @@ def export_serving(model_name, params, height, width, out_path, batch=1,
         "width": width,
         "compute_dtype": compute_dtype,
         "warp_mode": warp_mode,
-        "platforms": [device.type],
+        "platforms": [d.type for d in devices],
         "data_parallel": dp,
         "spatial_tiles": sp,
         "spatial_overlap": int(spatial_overlap) if sp else 0,
-        "fusion_res": 1,
+        "fusion_res": fusion_k,
+        **interconv_meta,
         "bf16_leaves": bf16_leaves,
     }
-    _write(out_path, [("exported.pt2", graph)], params_bytes, meta)
+    _write(out_path, graphs, params_bytes, meta)
     return meta
 
 
 def export_serving_bundle(model_name, params, shapes, out_path,
                           compute_dtype="bfloat16", warp_mode="half",
-                          platforms=None, device="cuda"):
+                          platforms=None, device="cuda",
+                          bf16_interconv=False):
     """Export SEVERAL shape-specialized forwards into one ``.flowpak``.
 
     ``shapes``: iterable of (height, width, batch). All entries share one
     copy of the weights; ``load_serving`` dispatches per call on the
-    input shape.
+    input shape. ``platforms``, ``device`` and ``bf16_interconv``: as in
+    :func:`export_serving` (a bundle runs the exact fusion, as in the JAX
+    package).
     """
-    refuse_unported(platforms=platforms)
     shapes = [tuple(int(v) for v in s) for s in shapes]
     if not shapes:
         raise ValueError("export_serving_bundle needs at least one shape")
@@ -335,15 +411,13 @@ def export_serving_bundle(model_name, params, shapes, out_path,
         raise ValueError(f"duplicate shapes in bundle: {shapes}")
     for h, w, _ in shapes:
         _check_shape(h, w)
-    device = _export_device(device, platforms)
-    forward, tensors, layouts, (params_bytes, bf16_leaves) = (
-        _serving_forward(model_name, params, compute_dtype, warp_mode,
-                         device))
-    graphs = [
-        (f"exported_{i}.pt2",
-         _export_one(forward, tensors, layouts, h, w, b, device))
-        for i, (h, w, b) in enumerate(shapes)
-    ]
+    devices = _export_devices(device, platforms)
+    graphs, (params_bytes, bf16_leaves) = _export_graphs(
+        model_name, params, compute_dtype, warp_mode, devices,
+        [(f"exported_{i}", shape, None) for i, shape in enumerate(shapes)],
+        bf16_interconv=bf16_interconv)
+    _, interconv_meta = _knob_meta(model_name, compute_dtype, 1,
+                                   bf16_interconv)
     meta = {
         "format_version": BUNDLE_FORMAT_VERSION,
         "model": model_name,
@@ -352,7 +426,8 @@ def export_serving_bundle(model_name, params, shapes, out_path,
         ],
         "compute_dtype": compute_dtype,
         "warp_mode": warp_mode,
-        "platforms": [device.type],
+        "platforms": [d.type for d in devices],
+        **interconv_meta,
         "bf16_leaves": bf16_leaves,
     }
     _write(out_path, graphs, params_bytes, meta)
@@ -367,11 +442,12 @@ class ServingModel:
     lives in the artifact.
     """
 
-    def __init__(self, program, params, meta):
+    def __init__(self, program, params, meta, device=None):
         self._program = program
         self._params = params
         self.meta = meta
-        self.device = torch.device(meta["platforms"][0])
+        # the device whose graph this is (one of meta["platforms"])
+        self.device = torch.device(device or meta["platforms"][0])
 
     def __call__(self, image_a, image_b):
         expect = (self.meta["batch"], self.meta["height"],
@@ -502,34 +578,65 @@ def _load_program(z, name):
     return program.module(), json.loads(layouts[LAYOUTS_FILE])
 
 
-def load_serving(path):
+def _serving_device(path, platforms, device):
+    """The device to serve on: ``device``, else ``cuda`` when the artifact
+    holds a CUDA graph (the port runs on the card unless asked for the
+    CPU), else its one platform. Raises for a platform the artifact does
+    not hold, and for CUDA on a host without a card: no platform's graph
+    stands in for another's."""
+    if device is None:
+        device = "cuda" if "cuda" in platforms else platforms[0]
+    device = torch.device(device)
+    if device.type not in platforms:
+        raise ValueError(
+            f"{path} holds graphs for the platforms {platforms}, none for "
+            f"{device.type}: serve it on one of those, or export it again "
+            f"with --platforms naming {device.type}")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        hint = ("serve its cpu graph with device='cpu' (cli serve --device "
+                "cpu)" if "cpu" in platforms else
+                "export it again with --platforms cpu (or --device cpu) to "
+                "serve on the CPU")
+        raise RuntimeError(
+            f"{path} was exported for cuda, but torch.cuda.is_available() "
+            f"is False: {hint}")
+    return device
+
+
+def load_serving(path, device=None):
     """Load a .flowpak written by :func:`export_serving` (single shape) or
-    :func:`export_serving_bundle` (shape-dispatching bundle). An artifact
-    exported on a CUDA device needs one here: there is no fallback."""
+    :func:`export_serving_bundle` (shape-dispatching bundle), reading only
+    the graphs of ``device``'s platform (default: ``cuda`` when the
+    artifact has it). A CUDA graph needs a card here: there is no
+    fallback to another platform's graph."""
     with zipfile.ZipFile(os.fspath(path)) as z:
         meta = json.loads(z.read("meta.json"))
         version = meta.get("format_version")
         if version not in (FORMAT_VERSION, BUNDLE_FORMAT_VERSION):
             raise ValueError(f"unsupported .flowpak version: {meta}")
-        if "exported.bin" in z.namelist() or "exported_0.bin" in z.namelist():
+        held = z.namelist()
+        if "exported.bin" in held or "exported_0.bin" in held:
             raise ValueError(
                 f"{path}: a jax.export artifact of the JAX package; the "
                 "torch port loads its own exports (exported*.pt2)")
-        device = torch.device(meta["platforms"][0])
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{path} was exported for cuda, but "
-                "torch.cuda.is_available() is False: export it again with "
-                "--device cpu to serve on the CPU")
-        names = (["exported.pt2"] if version == FORMAT_VERSION else
-                 [f"exported_{i}.pt2" for i in range(len(meta["entries"]))])
+        platforms = meta["platforms"]
+        device = _serving_device(path, platforms, device)
+        stems = (["exported"] if version == FORMAT_VERSION else
+                 [f"exported_{i}" for i in range(len(meta["entries"]))])
+        names = [_graph_name(s, device.type, platforms) for s in stems]
+        missing = [n for n in names if n not in held]
+        if missing:
+            raise ValueError(
+                f"{path}: meta.json names the platforms {platforms}, but "
+                f"the artifact lacks {missing}; it holds the graphs "
+                f"{sorted(n for n in held if n.endswith('.pt2'))}")
         loaded = [_load_program(z, name) for name in names]
         params = _load_params(z.read("params.npz"), meta["bf16_leaves"],
                               loaded[0][1], device)
     if version == FORMAT_VERSION:
-        return ServingModel(loaded[0][0], params, meta)
+        return ServingModel(loaded[0][0], params, meta, device)
     models = {}
     for (program, _), entry in zip(loaded, meta["entries"]):
         models[(entry["batch"], entry["height"], entry["width"])] = (
-            ServingModel(program, params, dict(meta, **entry)))
+            ServingModel(program, params, dict(meta, **entry), device))
     return BundleServingModel(models, meta)

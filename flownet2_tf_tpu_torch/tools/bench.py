@@ -21,7 +21,9 @@ Publish gates (the JAX package's):
   * the published value is the MEDIAN of ``repeats`` (>= 5 by default)
     samples, with the spread ((max - min) / median) disclosed;
   * a median below ``FLOOR_SAFETY`` x the analytic FLOPs floor
-    (``benchlib.count_flops`` / the card's peak) or a spread above
+    (``benchlib.count_flops`` of the model timed, its knobs included,
+    each FLOP over the card's peak for the precision it runs at:
+    ``peak_tflops`` in the result) or a spread above
     ``MAX_SPREAD`` is re-measured, up to ``MEASURE_ATTEMPTS`` times. A
     result that never clears the floor RAISES; one whose spread never
     settles is published with ``suspect`` naming the failed attempts.
@@ -98,21 +100,28 @@ def resolve_warp_mode(compute_dtype, warp_mode=None, warp_res=None):
 
 def run_bench(model="2", height=448, width=1024, batch=1, iters=16,
               compute_dtype="bfloat16", repeats=5, warp_mode=None,
-              validate=True, device="cuda", warp_res=None):
+              validate=True, device="cuda", warp_res=None, fusion_res=1,
+              bf16_interconv=False, f32_features="highest"):
     """Measure ``model``'s forward on ``device``; returns the result dict
     (the JAX package's keys, less its XLA-only
     ``hbm_gb_xla_opsum_bound``, plus ``device``: the card's name, or
     ``cpu``). ``warp_mode``/``warp_res``: see
-    :func:`resolve_warp_mode`."""
+    :func:`resolve_warp_mode`. ``fusion_res`` (FlowNet2's fusion grid),
+    ``bf16_interconv`` and ``f32_features``: the model's other knobs
+    (``ModelSpec.build_for``); the result names each one that is not at
+    its default (``fusion_res``, ``bf16_interconv``, ``f32_features``)."""
     from flownet2_tf_tpu_torch.training.infer import resolve_device
 
     label, k = resolve_warp_mode(compute_dtype, warp_mode, warp_res)
+    knobs = {"warp_res": k, "fusion_res": int(fusion_res),
+             "bf16_interconv": bool(bf16_interconv),
+             "f32_features": f32_features}
     return _measure(model, height, width, batch, iters, compute_dtype,
-                    repeats, label, validate, resolve_device(device), k)
+                    repeats, label, validate, resolve_device(device), knobs)
 
 
 def _measure(model, height, width, batch, iters, compute_dtype, repeats,
-             warp_mode, validate, device, warp_res):
+             warp_mode, validate, device, knobs):
     from flownet2_tf_tpu_torch.models.common import (
         cast_params_for_inference,
         compute_dtype_of,
@@ -123,7 +132,7 @@ def _measure(model, height, width, batch, iters, compute_dtype, repeats,
 
     spec = get_model(model)
     cd = compute_dtype_of(compute_dtype)
-    net = spec.build(device, warp_res=spec.warp_res_for(warp_res))
+    net = spec.build_for(device, **knobs)
     msra_init_(net, torch.Generator().manual_seed(0))
     if cd == torch.bfloat16:
         # serving-mode params: the feature layers' weights cast once, a
@@ -135,13 +144,19 @@ def _measure(model, height, width, batch, iters, compute_dtype, repeats,
                              .astype(np.float32)).to(device)
             for _ in range(2))
 
-    # the analytic floor first, so the timing can gate its own output
-    flops = benchlib.count_flops(model, batch, height, width,
-                                 compute_dtype, warp_res)
-    peak_flops, peak_bw = benchlib.device_peaks(device, compute_dtype)
+    # the analytic floor first, so the timing can gate its own output:
+    # each counted FLOP over the peak of the precision it runs at (the
+    # TF32 feature layers of f32_features='default' at the TF32 peak)
+    flops_by = benchlib.count_flops(model, batch, height, width,
+                                    compute_dtype, by_precision=True,
+                                    **knobs)
+    flops = sum(flops_by.values())
+    peaks = {p: benchlib.device_peaks(device, p)[0] for p in flops_by}
+    _, peak_bw = benchlib.device_peaks(device, compute_dtype)
     floor_ms = None
-    if flops and peak_flops:
-        floor_ms = flops / batch / peak_flops * 1000.0
+    if flops and all(peaks.values()):
+        floor_ms = sum(f / peaks[p] for p, f in flops_by.items()
+                       ) / batch * 1000.0
 
     def forward():
         return net({"input_a": a, "input_b": b}, cd)["flow"]
@@ -204,17 +219,25 @@ def _measure(model, height, width, batch, iters, compute_dtype, repeats,
         "repeats": len(samples),
         "spread_pct": round(spread * 100.0, 1),
     }
+    # the approximations the time was taken with, when not the exact path
+    if spec.fusion_res_for(knobs["fusion_res"]) != 1:
+        result["fusion_res"] = knobs["fusion_res"]
+    if knobs["bf16_interconv"] and spec.interconvs:
+        result["bf16_interconv"] = True
+    if knobs["f32_features"] != "highest":
+        result["f32_features"] = knobs["f32_features"]
     if reject_reasons:
         result["suspect"] = "; ".join(reject_reasons)
     if floor_ms is not None:
         result["floor_ms_analytic"] = round(floor_ms, 3)
+        result["peak_tflops"] = {p: peaks[p] / 1e12 for p in flops_by}
     # roofline accounting: the counted FLOPs of one pair against the
-    # card's peak (mfu), and the most bytes HBM could have moved in the
-    # time taken
+    # card's peaks (mfu: the time they take at the peaks over the time
+    # measured), and the most bytes HBM could have moved in the time taken
     if flops:
         result["model_tflops_per_pair"] = round(flops / batch / 1e12, 4)
-        if peak_flops:
-            result["mfu"] = round(flops / batch / per_pair / peak_flops, 4)
+        if floor_ms is not None:
+            result["mfu"] = round(floor_ms / 1000.0 / per_pair, 4)
     if peak_bw:
         result["hbm_gb_physical_ceiling"] = round(per_pair * peak_bw / 1e9,
                                                   3)

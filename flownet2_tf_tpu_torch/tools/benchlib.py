@@ -32,11 +32,13 @@ NOISE_FLOOR_MS = 0.05
 
 # Published peaks (NVIDIA's H100 SXM data sheet, 700 W), keyed by
 # ``torch.cuda.get_device_name``: dense bf16 tensor-core FLOP/s, f32
-# FLOP/s without tensor cores (the f32 path runs with TF32 off), and HBM
-# bytes/s. A card not listed has no peaks: no floor and no ``mfu``.
+# FLOP/s without tensor cores (the f32 path runs with TF32 off), dense
+# TF32 tensor-core FLOP/s (the f32 path's feature layers under
+# ``f32_features='default'``), and HBM bytes/s. A card not listed has no
+# peaks: no floor and no ``mfu``.
 DEVICE_PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12,
-                              "hbm": 3.35e12},
+                              "tf32": 495e12, "hbm": 3.35e12},
 }
 
 FLOPS_COUNTED = ("convolutions, transposed convolutions and the "
@@ -103,7 +105,8 @@ def marginal_ms(fn, *args, n_small=2, n_big=12, repeats=2, device=None):
 def device_peaks(device="cuda", compute_dtype="bfloat16"):
     """(peak FLOP/s at ``compute_dtype``, HBM bytes/s) of ``device``, or
     ``(None, None)`` for the CPU or a card not in ``DEVICE_PEAKS``:
-    never a guessed peak."""
+    never a guessed peak. ``compute_dtype``: ``"bfloat16"``,
+    ``"float32"`` or ``"tf32"``."""
     device = torch.device(device)
     if device.type != "cuda":
         return None, None
@@ -114,11 +117,20 @@ def device_peaks(device="cuda", compute_dtype="bfloat16"):
 
 
 def count_flops(model_name, batch=1, height=448, width=1024,
-                compute_dtype="bfloat16", warp_res=1):
-    """FLOPs of one forward of ``model_name`` on a ``batch`` x ``height``
-    x ``width`` pair, counted by ``torch.utils.flop_counter`` on the meta
-    device (no data, no card); the counterpart of the JAX package's
-    ``cost_analysis``, with no byte count (there is no XLA op-sum here).
+                compute_dtype="bfloat16", warp_res=1, fusion_res=1,
+                bf16_interconv=False, f32_features="highest",
+                by_precision=False):
+    """FLOPs of one forward of ``model_name`` (built with the knobs given,
+    ``ModelSpec.build_for``) on a ``batch`` x ``height`` x ``width`` pair,
+    counted by ``torch.utils.flop_counter`` on the meta device (no data,
+    no card); the counterpart of the JAX package's ``cost_analysis``,
+    with no byte count (there is no XLA op-sum here).
+
+    ``by_precision``: a dict {precision: FLOPs} instead of the total, the
+    precision being the :func:`device_peaks` key each FLOP is floored at:
+    ``"bfloat16"`` for the whole bf16 forward (its f32 flow heads too: a
+    lower floor), ``"float32"`` for the f32 forward, less its TF32 feature
+    layers (``f32_features='default'``) under ``"tf32"``.
 
     It counts :data:`FLOPS_COUNTED` only, so a floor made from it is a
     lower bound: a floor gate built on it can only err on the safe side.
@@ -128,19 +140,43 @@ def count_flops(model_name, batch=1, height=448, width=1024,
     from flownet2_tf_tpu_torch.models.common import compute_dtype_of
     from flownet2_tf_tpu_torch.models.registry import get_model
 
-    spec = get_model(model_name)
-    model = spec.build("meta", warp_res=spec.warp_res_for(warp_res))
+    model = get_model(model_name).build_for(
+        "meta", warp_res=warp_res, fusion_res=fusion_res,
+        bf16_interconv=bf16_interconv, f32_features=f32_features)
+    cd = compute_dtype_of(compute_dtype)
     img = torch.zeros((batch, height, width, 3), device="meta")
-    with FlopCounterMode(display=False) as counter, torch.no_grad():
-        model({"input_a": img, "input_b": img},
-              compute_dtype_of(compute_dtype))
-    return counter.get_total_flops()
+    counter = FlopCounterMode(display=False)
+    tf32, before, hooks = [0], {}, []
+    if cd == torch.float32:
+        # the TF32 layers' FLOPs: the count's growth over each one's call
+        for layer in model.modules():
+            if getattr(layer, "tf32", False):
+                hooks.append(layer.register_forward_pre_hook(
+                    lambda m, _: before.__setitem__(
+                        m, counter.get_total_flops())))
+                hooks.append(layer.register_forward_hook(
+                    lambda m, _, __: tf32.__setitem__(
+                        0, tf32[0] + counter.get_total_flops() - before[m])))
+    try:
+        with counter, torch.no_grad():
+            model({"input_a": img, "input_b": img}, cd)
+    finally:
+        for h in hooks:
+            h.remove()
+    total = counter.get_total_flops()
+    if not by_precision:
+        return total
+    if cd == torch.bfloat16:
+        return {"bfloat16": total}
+    return {"float32": total - tf32[0], **({"tf32": tf32[0]} if tf32[0]
+                                            else {})}
 
 
 def train_step_ms(model_name="s", batch=8, height=320, width=448,
                   compute_dtype="bfloat16", iters=8, augment=False,
                   remat=False, frozen=None, stop_grad_frozen=None,
-                  lr=1e-4, device="cuda"):
+                  lr=1e-4, device="cuda", fusion_res=1,
+                  bf16_interconv=False, f32_features="highest"):
     """Marginal time of one ``Trainer.train_step``: ``(ms,
     examples_per_s)``.
 
@@ -149,7 +185,9 @@ def train_step_ms(model_name="s", batch=8, height=320, width=448,
     package's ``"bench"`` schedule at ``lr``; the updated state feeds
     the next step. ``frozen``: the frozen scopes (None: the model's
     default); ``remat``: the trainer's remat segments
-    (``TrainConfig.remat``). Timed by :func:`marginal_ms` (runs of 1 and
+    (``TrainConfig.remat``); ``fusion_res``, ``bf16_interconv``,
+    ``f32_features``: the model's knobs (``TrainConfig``). Timed by
+    :func:`marginal_ms` (runs of 1 and
     1 + ``iters`` steps); on the CPU the times are CPU times. Raises if
     the last step's loss is not finite.
     """
@@ -181,6 +219,9 @@ def train_step_ms(model_name="s", batch=8, height=320, width=448,
             tensorboard=False,
             checkpoint_every=0,
             device=device,
+            fusion_res=fusion_res,
+            bf16_interconv=bf16_interconv,
+            f32_features=f32_features,
             **({} if frozen is None else {"frozen": frozen}),
         ))
     state = trainer.init_state()

@@ -156,10 +156,11 @@ DEFAULT_SAMPLE_DIR = "data/samples"
 
 def semantic_canary(params_path: str, model_name: str,
                     sample_dir: str = DEFAULT_SAMPLE_DIR, device="cuda",
-                    warp_res: int = 1) -> dict:
+                    warp_res: int = 1, **knobs) -> dict:
     """Run a converted checkpoint on the bundled sample pair on
     ``device`` (f32, ``training/infer.py::infer_flow``) and check that the
-    flow is *semantically* sane, not just shape-compatible.
+    flow is *semantically* sane, not just shape-compatible. ``warp_res``
+    and ``knobs``: the knobs of ``infer.load_model`` the CLI was given.
 
     Name and shape validation would load a semantically mismatched
     checkpoint cleanly (e.g. a wrong fusion concat order) and predict
@@ -187,7 +188,8 @@ def semantic_canary(params_path: str, model_name: str,
     params = load_params_tree(params_path)
     a, b = load_image_pair(a_path, b_path)
     flow = infer.infer_flow(model_name, params, a, b, device=device,
-                            compute_dtype="float32", warp_res=warp_res)
+                            compute_dtype="float32", warp_res=warp_res,
+                            **knobs)
 
     if not np.all(np.isfinite(flow)):
         raise ValueError(

@@ -33,14 +33,17 @@ WARMUP_FORWARDS = 2
 
 def trace_model(model_name="2", height=448, width=1024, batch=1, iters=3,
                 compute_dtype="bfloat16", trace_dir=None, warp_mode=None,
-                device="cuda", warp_res=None):
+                device="cuda", warp_res=None, fusion_res=1,
+                bf16_interconv=False, f32_features="highest"):
     """Run and trace ``iters`` forwards; returns the trace directory
     (default: ``flownet2_trace`` in the temporary directory).
 
     ``warp_mode="half"`` profiles the serving preset (half-res stack
     warps), ``"full"`` pins exact warps; ``None`` (default) follows
     ``warp_res`` (``cli profile --warp_res K``), exact if that is None
-    too. Weights are the seeded init (pre-cast for bf16, as served)."""
+    too. ``fusion_res``, ``bf16_interconv``, ``f32_features``: the model's
+    other knobs (``ModelSpec.build_for``), recorded in ``summary.json``.
+    Weights are the seeded init (pre-cast for bf16, as served)."""
     from flownet2_tf_tpu_torch.models.common import (
         cast_params_for_inference,
         compute_dtype_of,
@@ -57,7 +60,9 @@ def trace_model(model_name="2", height=448, width=1024, batch=1, iters=3,
     device = resolve_device(device)
     spec = get_model(model_name)
     cd = compute_dtype_of(compute_dtype)
-    net = spec.build(device, warp_res=spec.warp_res_for(k))
+    net = spec.build_for(device, warp_res=k, fusion_res=fusion_res,
+                         bf16_interconv=bf16_interconv,
+                         f32_features=f32_features)
     msra_init_(net, torch.Generator().manual_seed(0))
     if cd == torch.bfloat16:
         cast_params_for_inference(net, cd)
@@ -88,7 +93,10 @@ def trace_model(model_name="2", height=448, width=1024, batch=1, iters=3,
     summary = {
         "model": model_name, "batch": batch, "height": height,
         "width": width, "compute_dtype": compute_dtype,
-        "warp_res": spec.warp_res_for(k), "iters": iters,
+        "warp_res": spec.warp_res_for(k),
+        "fusion_res": spec.fusion_res_for(fusion_res),
+        "bf16_interconv": bool(bf16_interconv) and spec.interconvs,
+        "f32_features": f32_features, "iters": iters,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
         **summarize(prof.key_averages(), iters, on_card),
     }

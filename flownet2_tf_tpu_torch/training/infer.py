@@ -48,14 +48,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def load_model(model_name, params, device="cuda", warp_res=1):
-    """Build ``model_name`` on ``device`` with its stack warps at
-    ``warp_res`` (1 exact, 2 half, 4 quarter; models without stack warps
-    ignore it) and fill it from a JAX-layout tree; returns the module in
-    eval mode."""
+def load_model(model_name, params, device="cuda", warp_res=1, fusion_res=1,
+               bf16_interconv=False, f32_features="highest"):
+    """Build ``model_name`` on ``device`` with its knobs and fill it from a
+    JAX-layout tree; returns the module in eval mode. ``warp_res``: the
+    stack warps' grid (1 exact, 2 half, 4 quarter); ``fusion_res``:
+    FlowNet2's fusion grid (1 exact, 2 half); ``bf16_interconv``: the
+    interconvs follow the bf16 compute dtype; ``f32_features``:
+    ``"highest"`` or ``"default"`` (TF32 feature layers on the f32 path).
+    A model ignores the knobs it does not read (``ModelSpec.build_for``)."""
     device = resolve_device(device)
-    spec = get_model(model_name)
-    model = spec.build(device, warp_res=spec.warp_res_for(warp_res))
+    model = get_model(model_name).build_for(
+        device, warp_res=warp_res, fusion_res=fusion_res,
+        bf16_interconv=bf16_interconv, f32_features=f32_features)
     return load_jax_params(model, params)
 
 
@@ -82,27 +87,35 @@ def forward_flow(model, image_a, image_b, compute_dtype=None):
         return preds["flow"][:, :h, :w, :]
 
 
-def inference_model(model_name, params, device, compute_dtype, warp_res=1):
-    """``load_model``, with the feature layers pre-cast once when
-    ``compute_dtype`` (a torch dtype) is bfloat16."""
-    model = load_model(model_name, params, device, warp_res)
+def inference_model(model_name, params, device, compute_dtype, warp_res=1,
+                    **knobs):
+    """``load_model`` (``knobs``: its other knobs), with the layers that
+    follow the compute dtype pre-cast once when ``compute_dtype`` (a torch
+    dtype) is bfloat16."""
+    model = load_model(model_name, params, device, warp_res, **knobs)
     if compute_dtype == torch.bfloat16:
         cast_params_for_inference(model, compute_dtype)
     return model
 
 
 def infer_flow(model_name, params, image_a, image_b, device="cuda",
-               compute_dtype="float32", warp_res=1):
+               compute_dtype="float32", warp_res=1, fusion_res=1,
+               bf16_interconv=False, f32_features="highest"):
     """Run a model on a single pair or batch; returns full-res flow.
 
     ``image_a/b``: (H, W, 3) or (N, H, W, 3) float arrays in [0, 1].
     ``params``: a JAX-layout tree. ``compute_dtype``: 'float32' or
-    'bfloat16'. ``warp_res``: the stack warps' grid factor (``cli
-    --warp_res``). Returns a numpy f32 array.
+    'bfloat16'. ``warp_res``, ``fusion_res``, ``bf16_interconv``,
+    ``f32_features``: the knobs of :func:`load_model` (``cli --warp_res``,
+    ``--fusion_res``, ``FLOWNET2_TPU_BF16_INTERCONV``,
+    ``--f32_features``). Returns a numpy f32 array.
     """
     cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
-    model = inference_model(model_name, params, device, cd, warp_res)
+    model = inference_model(model_name, params, device, cd, warp_res,
+                            fusion_res=fusion_res,
+                            bf16_interconv=bf16_interconv,
+                            f32_features=f32_features)
     a = torch.as_tensor(np.asarray(image_a, np.float32), device=device)
     b = torch.as_tensor(np.asarray(image_b, np.float32), device=device)
     squeeze = a.ndim == 3
@@ -115,9 +128,9 @@ def infer_flow(model_name, params, image_a, image_b, device="cuda",
 def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
               save_image=True, save_flo=True, compute_dtype="float32",
               device="cuda", warp_res=1, spatial_tiles=0,
-              spatial_overlap=128):
+              spatial_overlap=128, **knobs):
     """Pair of image files -> .png / .flo outputs; returns the predicted
-    (H, W, 2) flow.
+    (H, W, 2) flow. ``knobs``: :func:`load_model`'s other knobs.
 
     ``spatial_tiles`` > 1 runs halo-banded tiled inference
     (``parallel/spatial.py``, the bands as one batch on ``device``): the
@@ -137,10 +150,11 @@ def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
             np.pad(np.asarray(b, np.float32), pad, mode="edge"),
             n_tiles=int(spatial_tiles), overlap=int(spatial_overlap),
             device=device, compute_dtype=compute_dtype,
-            warp_res=warp_res)[:h, :w]
+            warp_res=warp_res, **knobs)[:h, :w]
     else:
         flow = infer_flow(model_name, params, a, b, device=device,
-                          compute_dtype=compute_dtype, warp_res=warp_res)
+                          compute_dtype=compute_dtype, warp_res=warp_res,
+                          **knobs)
     write_flow_outputs(flow, out_dir, input_a_path,
                        save_flo=save_flo, save_image=save_image)
     return flow
@@ -196,7 +210,8 @@ def _bucket_batch(item, multiple=64):
 
 def evaluate_dataset(model_name, params, dataset, compute_dtype="float32",
                      limit=None, verbose=False, batch_size=1, device="cuda",
-                     warp_res=1):
+                     warp_res=1, fusion_res=1, bf16_interconv=False,
+                     f32_features="highest"):
     """Average endpoint error over a dataset of {image_a, image_b, flow}:
     the mean of per-pair AEEs.
 
@@ -204,12 +219,16 @@ def evaluate_dataset(model_name, params, dataset, compute_dtype="float32",
     valid pixel counts as AEE 0. Pairs are decoded one after another on
     the host and padded to %64 shape buckets; ``batch_size`` > 1 batches
     pairs within a bucket, and tail batches run at their true size.
-    ``params``: a JAX-layout tree; bf16 pre-casts the weights once.
+    ``params``: a JAX-layout tree; bf16 pre-casts the weights once. The
+    knobs: :func:`load_model`'s.
     """
     cd = compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     n = len(dataset) if limit is None else min(limit, len(dataset))
-    model = inference_model(model_name, params, device, cd, warp_res)
+    model = inference_model(model_name, params, device, cd, warp_res,
+                            fusion_res=fusion_res,
+                            bf16_interconv=bf16_interconv,
+                            f32_features=f32_features)
     batch_size = max(1, int(batch_size))
     aee_sum = 0.0
     seen = 0

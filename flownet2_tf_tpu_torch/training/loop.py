@@ -13,6 +13,10 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   master weights: each feature layer casts its weights to bf16 inside
   its forward, so autograd returns f32 gradients, and Adam, the loss and
   the checkpoints stay f32;
+* the dispatch knobs the JAX step reads at trace time (``warp_res``,
+  ``fusion_res``, ``bf16_interconv``, ``f32_features``) -> the model's
+  build arguments (``ModelSpec.build_for``); ``f32_features='default'``
+  turns TF32 on for the feature layers' forward only;
 * ``transfer_flow_dtype`` -> the GT flow is cast to float16/bfloat16 on
   the host, crosses to the device narrow and is cast back to f32 there;
 * ``_images_to_float`` -> uint8 images (``TFRecordFlowDataset(raw_uint8=
@@ -166,6 +170,14 @@ class TrainConfig:
     # the stack warps' grid factor (1 exact, 2 half, 4 quarter); models
     # without stack warps ignore it
     warp_res: int = 1
+    # FlowNet2's fusion grid factor (1 exact, 2 half); other models ignore
+    # it
+    fusion_res: int = 1
+    # the interconvs follow the bf16 compute dtype (FlowNetSD, FlowNet2)
+    bf16_interconv: bool = False
+    # 'highest' | 'default': TF32 feature layers in the f32 forward (the
+    # backward stays full f32)
+    f32_features: str = "highest"
     # batch staging: 'auto' | 'thread' | 'inline'. 'thread' pins batch k+1
     # and uploads it on a copy stream from a worker thread while step k
     # runs; 'auto' is 'thread'
@@ -237,9 +249,11 @@ class Trainer:
         the rest, step 0. In a process group the model is wrapped in DDP,
         whose constructor broadcasts process 0's parameters, so every
         process starts from the same ones."""
-        model = self.spec.build(
-            self.device, warp_res=self.spec.warp_res_for(self.config.warp_res)
-        ).train()
+        cfg = self.config
+        model = self.spec.build_for(
+            self.device, warp_res=cfg.warp_res, fusion_res=cfg.fusion_res,
+            bf16_interconv=cfg.bf16_interconv,
+            f32_features=cfg.f32_features).train()
         msra_init_(model, torch.Generator().manual_seed(self.config.seed))
         optim.zero_frozen_grads(model, self.frozen)
         trainable = [p for p in model.parameters() if p.requires_grad]

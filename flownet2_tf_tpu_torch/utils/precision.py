@@ -28,7 +28,10 @@ def f32_policy(compute_dtype=None):
     picks only deterministic algorithms, whatever ``compute_dtype`` is
     (None, float32 or bfloat16: every forward, served call and train
     step enters it with its own); the previous settings come back on
-    exit. The price on the H100 is measured by
+    exit. The one exception is opt-in: a model built with
+    ``f32_features='default'`` turns cuDNN's TF32 back on around each of
+    its f32 feature layers' convs and restores it after
+    (``models/common.py::set_f32_features``). The price on the H100 is measured by
     ``tools/determinism_ab.py`` (PERF.md). The f32 deconvs run as
     sub-pixel convs (``models/common.py::deconv_subpixel``): cuDNN's
     deterministic f32 transposed convs are slow.

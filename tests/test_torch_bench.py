@@ -108,9 +108,9 @@ def test_bench_warp_mode(monkeypatch, kw, env, label, k):
     built = []
     real_build = registry.ModelSpec.build
 
-    def spy(self, device="cpu", warp_res=1):
+    def spy(self, device="cpu", warp_res=1, **knobs):
         built.append(warp_res)
-        return real_build(self, device, warp_res)
+        return real_build(self, device, warp_res, **knobs)
 
     monkeypatch.setattr(registry.ModelSpec, "build", spy)
     out = bench.run_bench(model="cs", height=64, width=64, iters=1,

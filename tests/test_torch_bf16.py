@@ -30,6 +30,7 @@ import functools
 import json
 import math
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -69,6 +70,13 @@ SAMPLES = os.path.join(ROOT, "data", "samples")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 H, W = 128, 192
 FULL_RES = ("flow", "flow_css", "flow_sd")
+
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Training runs and FlowNet2 checkpoints here are 150-650 MB each: delete what each test wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 
 def _f32(x):

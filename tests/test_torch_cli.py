@@ -29,6 +29,13 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 SAMPLES = os.path.join(ROOT, "data", "samples")
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Checkpoints and training runs here are 150-650 MB each: delete what each test wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 
 def _test_args(tmp_path, ckpt, device):
     return [
@@ -365,7 +372,7 @@ def test_cli_train_without_data_raises(tmp_path, run_dir):
 
 
 # ---------------------------------------------------------------------------
-# The warp flags (--warp_res, --half_res_warp) and the refused knobs
+# The warp flags (--warp_res, --half_res_warp)
 # ---------------------------------------------------------------------------
 
 def _jax_tree_npz(tmp_path_factory, name):
@@ -489,27 +496,3 @@ def test_cli_train_warp_res_matches_jax(tmp_path, ckpt_cs, capsys,
     np.testing.assert_allclose([r["loss"] for r in mine],
                                [r["loss"] for r in theirs], rtol=1e-5)
 
-
-# the other arguments each command needs
-_COMMAND_ARGS = {
-    "test": ["--input_a", "a.ppm", "--input_b", "b.ppm", "--ckpt", "c.npz"],
-    "eval": ["--ckpt", "c.npz"],
-    "train": ["--synthetic"],
-    "bench": [],
-    "profile": [],
-}
-
-
-@pytest.mark.parametrize("command", sorted(_COMMAND_ARGS))
-@pytest.mark.parametrize("flag", [["--fusion_res", "2"],
-                                  ["--f32_features", "default"]])
-def test_unported_knobs_are_refused(command, flag):
-    """``--fusion_res`` and ``--f32_features`` other than their defaults
-    raise before anything runs; the defaults pass."""
-    argv = [command, "--model", "2", "--device", "cpu",
-            *_COMMAND_ARGS[command]]
-    with pytest.raises(SystemExit, match="item 18"):
-        cli.main([*argv, *flag])
-    args = cli.build_parser().parse_args(
-        [*argv, "--fusion_res", "1", "--f32_features", "highest"])
-    assert cli._refuse_unported_knobs(args) is None

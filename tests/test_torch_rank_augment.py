@@ -46,6 +46,13 @@ LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 STEPS = 2
 LOCAL_BATCH = 2
 
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Each run here writes FlowNetC checkpoints of about 150 MB: delete what each test wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 
 def _preprocess():
     pre = dict(dataset_configs.FLYING_CHAIRS_DATASET_CONFIG["PREPROCESS"])
