@@ -115,6 +115,19 @@ weights:
   ``export_serving(..., fusion_res=2)`` served bitwise its eager model;
   (d) two ``cli train --model 2 --fusion_res 2`` bf16 runs of 2 steps,
   checkpoints bitwise equal. ``--phase17`` runs phases 0 and 17 alone.
+* phase 18, asynchronous checkpoint saving (``Trainer.save``): (a)
+  FlowNetC and FlowNetCSS (FlowNetCS frozen) bf16 b8 320x448 on one
+  uploaded batch, in turns: the training thread's stall in
+  ``save(wait=True)`` against ``save()``, the background write's wall
+  time, and the CUDA-event step ms while a write is in flight against
+  with none; each asynchronous checkpoint bitwise the synchronous one of
+  the same step, written while later steps ran; (b) ``cli train --model
+  c --checkpoint_every 2``, 4 steps straight against 2 then resumed to 4,
+  the checkpoints bitwise equal, one forward and one backward correlation
+  launch per step; (c) a child that trains a step, calls ``save()`` and
+  exits at once leaves a complete checkpoint, which ``restore_or_init``
+  resumes bitwise. Its checkpoints are deleted at its end.
+  ``--phase18`` runs phases 0 and 18 alone.
 
 Every child process (phase 12's and phase 15's workers, the DDP ranks,
 ``nvidia-smi``, the compilers) starts in its own session with its output
@@ -3423,6 +3436,321 @@ def phase17_serving_levers(tmp, tree, ckpt):
         f"{', over it' if wall > PHASE17_BUDGET_S else ''})")
 
 
+PHASE18_BUDGET_S = 90.0
+# (a): saves per model, each a synchronous then an asynchronous save of the
+# same step, after this many warm-up steps
+P18_SAVES, P18_WARMUP = 2, 3
+# (b): `cli train --checkpoint_every 2`, 4 steps straight and 2 + 2
+P18_STEPS, P18_EVERY = 4, 2
+# (c): how long the child's write is held, so that its main thread is
+# already leaving the interpreter when the write begins
+P18_HOLD_S = 1.0
+
+
+def _p18_trainer(log_dir, model="c"):
+    """Phase 18's trainer: ``model`` at the bf16 default, its default
+    frozen scopes, the newest checkpoint kept."""
+    from flownet2_tf_tpu_torch.training.loop import TrainConfig, Trainer
+
+    return Trainer(TrainConfig(
+        model=model, schedule="short", log_dir=log_dir, device="cuda",
+        tensorboard=False, checkpoint_every=0, keep_checkpoints=1))
+
+
+def _p18_read(step_dir):
+    """(params.npz as a dict, optimizer.pt as saved) of ``step_dir``."""
+    import numpy as np
+    import torch
+
+    from flownet2_tf_tpu_torch.training.loop import OPTIMIZER_FILE
+    from flownet2_tf_tpu_torch.training.warmstart import PARAMS_FILE
+
+    with np.load(os.path.join(step_dir, PARAMS_FILE)) as z:
+        params = {k: z[k] for k in z.files}
+    return params, torch.load(os.path.join(step_dir, OPTIMIZER_FILE),
+                              weights_only=True)
+
+
+def _same_tree(a, b):
+    """Equal nested containers, tensors bitwise in dtype and shape."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _same_checkpoint(a, b):
+    """Two :func:`_p18_read` results bitwise equal."""
+    return (_bitwise_equal(a[0], b[0])
+            and all(v.dtype == b[0][k].dtype for k, v in a[0].items())
+            and _same_tree(a[1], b[1]))
+
+
+def _p18_digests(model):
+    import hashlib
+
+    import numpy as np
+
+    from flownet2_tf_tpu_torch.training import warmstart
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in warmstart.flatten(
+                warmstart.to_jax_params(model)).items()}
+
+
+def _p18_saves(tmp, model):
+    """(a) ``model`` bf16 b8 320x448 (its default frozen scopes) on one
+    batch uploaded once, as ``benchlib.train_step_ms`` runs it. P18_SAVES
+    times: ``save(wait=True)`` of step k, then ``save()`` of the same
+    step, with train steps run while its write is in flight, then as many
+    with no write, after a first save that allocates the trainer's
+    snapshot buffers. Returns the stalls (host ms from a synchronize to the
+    call's return), the writes' wall times (s, timed inside the writer),
+    the CUDA-event step ms, the checkpoint's MB and whether each
+    asynchronous checkpoint is bitwise the synchronous one."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+
+    log_dir = os.path.join(tmp, f"p18_{model}")
+    trainer = _p18_trainer(log_dir, model)
+    state = trainer.init_state()
+    batch = {k: torch.from_numpy(v).to(trainer.device)
+             for k, v in _p15_batch().items()}
+    writes = []
+    write = trainer._write_checkpoint
+
+    def timed_write(step, *args):
+        t0 = time.perf_counter()
+        try:
+            write(step, *args)
+        finally:
+            writes.append(time.perf_counter() - t0)
+
+    trainer._write_checkpoint = timed_write
+
+    def step_ms():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(state, batch)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def stall_ms(wait):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save(state, wait=wait)
+        return (time.perf_counter() - t0) * 1000.0
+
+    for _ in range(P18_WARMUP):
+        step_ms()
+    correlation_kernel.reset_launch_counts()
+    out = {"stall_ms": {"sync": [], "async": []},
+           "write_s": {"sync": [], "async": []},
+           "step_ms": {"write": [], "idle": []}, "bitwise": []}
+    try:
+        # the first save allocates the trainer's snapshot buffers
+        out["first_save_ms"] = stall_ms(True)
+        for _ in range(P18_SAVES):
+            out["stall_ms"]["sync"].append(stall_ms(True))
+            out["write_s"]["sync"].append(writes[-1])
+            step_dir = os.path.join(log_dir, "checkpoints", str(state.step))
+            out["mb"] = sum(os.path.getsize(os.path.join(step_dir, f))
+                            for f in os.listdir(step_dir)) / 1e6
+            sync_files = _p18_read(step_dir)
+            n = len(writes)
+            out["stall_ms"]["async"].append(stall_ms(False))
+            during = [step_ms()]
+            while len(writes) == n:
+                during.append(step_ms())
+            trainer.wait_until_finished()
+            out["write_s"]["async"].append(writes[-1])
+            out["bitwise"].append(_same_checkpoint(sync_files,
+                                                   _p18_read(step_dir)))
+            out["step_ms"]["write"] += during
+            out["step_ms"]["idle"] += [step_ms() for _ in during]
+        counts = path_counts()
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    steps = len(out["step_ms"]["write"]) + len(out["step_ms"]["idle"])
+    _check_counts(counts, steps, steps if model == "c" else 0, "bfloat16",
+                  f"phase 18 (a) {model}")
+    med = {k: {w: statistics.median(v) for w, v in d.items()}
+           for k, d in out.items() if k in ("stall_ms", "write_s",
+                                            "step_ms")}
+    log(f"phase 18 (a): {model} bf16 b{TRAIN_BATCH} {TRAIN_H}x{TRAIN_W}, "
+        f"checkpoint {out['mb']:.1f} MB: first save(wait=True) "
+        f"{out['first_save_ms']:.1f} ms; stall of save(wait=True) median "
+        f"{med['stall_ms']['sync']:.1f} ms, of save() "
+        f"{med['stall_ms']['async']:.1f} ms; background write "
+        f"{med['write_s']['async']:.3f} s (synchronous writes "
+        f"{med['write_s']['sync']:.3f} s); step "
+        f"{med['step_ms']['write']:.3f} ms with a write in flight over "
+        f"{len(out['step_ms']['write'])} steps, {med['step_ms']['idle']:.3f}"
+        f" ms with none; correlation launches {counts}; asynchronous "
+        f"checkpoints bitwise the synchronous ones: {out['bitwise']}")
+    if not all(out["bitwise"]):
+        raise AssertionError(f"phase 18 (a) {model}: an asynchronous "
+                             "checkpoint differs from the synchronous one")
+    return {**out, "median": med}
+
+
+def _p18_resume(tmp):
+    """(b) ``cli train --model c`` (bf16) with ``--checkpoint_every 2``:
+    P18_STEPS steps straight, against P18_STEPS // 2 then resumed; the
+    checkpoints bitwise equal, one forward and one backward correlation
+    launch per step."""
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel
+
+    common = ["--model", "c", "--synthetic", "--synthetic_height",
+              str(TRAIN_H), "--synthetic_width", str(TRAIN_W),
+              "--batch_size", str(TRAIN_BATCH), "--schedule", "short",
+              "--log_every", "1", "--checkpoint_every", str(P18_EVERY),
+              "--device", "cuda"]
+    straight = os.path.join(tmp, "p18_straight")
+    resumed = os.path.join(tmp, "p18_resumed")
+    half = P18_STEPS // 2
+    try:
+        correlation_kernel.reset_launch_counts()
+        logged = [[r["step"] for r in _train([
+            *common, "--log_dir", log_dir, "--max_steps", str(stop)])]
+            for log_dir, stop in ((straight, P18_STEPS), (resumed, half),
+                                  (resumed, P18_STEPS))]
+        counts = path_counts()
+        kept = [sorted(os.listdir(os.path.join(d, "checkpoints")), key=int)
+                for d in (straight, resumed)]
+        same = {step: _same_checkpoint(
+            _p18_read(os.path.join(straight, "checkpoints", step)),
+            _p18_read(os.path.join(resumed, "checkpoints", step)))
+            for step in kept[0]}
+    finally:
+        shutil.rmtree(straight, ignore_errors=True)
+        shutil.rmtree(resumed, ignore_errors=True)
+    log(f"phase 18 (b): cli train --model c --checkpoint_every {P18_EVERY} "
+        f"(bf16): logged steps {logged}, checkpoints {kept}, straight "
+        f"against resumed bitwise {same}; correlation launches {counts}")
+    if logged != [list(range(1, P18_STEPS + 1)), list(range(1, half + 1)),
+                  list(range(half + 1, P18_STEPS + 1))]:
+        raise AssertionError(f"phase 18 (b): logged steps {logged}")
+    if kept[0] != kept[1] or kept[0][-1] != str(P18_STEPS):
+        raise AssertionError(f"phase 18 (b): checkpoints {kept}")
+    if not all(same.values()):
+        raise AssertionError(f"phase 18 (b): the resumed checkpoints differ "
+                             f"from the straight run's: {same}")
+    _check_counts(counts, 2 * P18_STEPS, 2 * P18_STEPS, "bfloat16",
+                  "phase 18 (b)")
+
+
+def save_exit_worker(spec_path):
+    """Phase 18 (c)'s child: FlowNetC (bf16) trains one step on the card
+    on ``_p15_batch``, writes its parameters' SHA-256 and its launch
+    counts to the spec's result file, calls ``Trainer.save(state)`` with
+    its write held P18_HOLD_S s, and returns at once."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    trainer = _p18_trainer(spec["log_dir"])
+    state = trainer.init_state()
+    ck.reset_launch_counts()
+    trainer.train_step(state, _p15_batch())
+    torch.cuda.synchronize()
+    with open(spec["result"], "w") as f:
+        json.dump({"step": state.step, "digests": _p18_digests(state.model),
+                   "launches": {"fwd": dict(ck.LAUNCHES_BY_DTYPE),
+                                "bwd": dict(ck.BWD_LAUNCHES_BY_DTYPE)}}, f)
+    write = trainer._write_checkpoint
+
+    def held(*args):
+        time.sleep(P18_HOLD_S)
+        write(*args)
+
+    trainer._write_checkpoint = held
+    trainer.save(state)
+    return 0
+
+
+def _p18_exit_start(tmp):
+    """(c) start the child that saves and exits; it runs beside (b)."""
+    spec = os.path.join(tmp, "p18_exit.json")
+    log_dir = os.path.join(tmp, "p18_exit")
+    with open(spec, "w") as f:
+        json.dump({"log_dir": log_dir, "result": spec + ".out"}, f)
+    log_path = os.path.join(tmp, "p18_exit.log")
+    return (_start_child("save_exit_worker", spec, log_path), spec,
+            log_path, log_dir)
+
+
+def _p18_exit_finish(started):
+    """(c) the child exited 0 and left a complete checkpoint of its step,
+    which ``restore_or_init`` on the card resumes bitwise."""
+    proc, spec, log_path, log_dir = started
+    t0 = time.perf_counter()
+    _wait_child(proc, log_path, "phase 18 (c)")
+    waited = time.perf_counter() - t0
+    try:
+        with open(spec + ".out") as f:
+            child = json.load(f)
+        _add_launches(child["launches"])
+        step_dir = os.path.join(log_dir, "checkpoints", str(child["step"]))
+        entries = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
+        files = sorted(os.listdir(step_dir))
+        state, resumed = _p18_trainer(log_dir).restore_or_init()
+        same = _p18_digests(state.model) == child["digests"]
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    log(f"phase 18 (c): a child trained step {child['step']}, called save() "
+        f"with its write held {P18_HOLD_S} s and returned (waited on "
+        f"{waited:.1f} s here after (b)); it left {entries} holding {files}; "
+        f"restore_or_init resumed {resumed} at step {state.step}, parameters "
+        f"bitwise the child's: {same}; its correlation launches "
+        f"{child['launches']}")
+    if entries != [str(child["step"])] or not resumed or not same:
+        raise AssertionError("phase 18 (c): the child's checkpoint is "
+                             "missing, partial or different")
+    if state.step != child["step"]:
+        raise AssertionError(f"phase 18 (c): resumed at step {state.step}")
+    _check_counts(child["launches"], 1, 1, "bfloat16", "phase 18 (c)")
+
+
+def phase18_async_checkpoints(tmp):
+    """Asynchronous checkpoint saving on the card: (a) the stall of
+    ``save(wait=True)`` against ``save()``, the background write's wall
+    time and the step with a write in flight against with none, for
+    FlowNetC and FlowNetCSS (FlowNetCS frozen), each asynchronous
+    checkpoint bitwise the synchronous one; (b) ``cli train
+    --checkpoint_every 2`` straight against interrupted and resumed,
+    bitwise; (c) a process that exits right after ``save()`` leaves a
+    complete checkpoint."""
+    t0 = time.perf_counter()
+    before = json.loads(json.dumps(PATH_LAUNCHES))
+    numbers = {model: _p18_saves(tmp, model) for model in ("c", "css")}
+    started = _p18_exit_start(tmp)
+    try:
+        _p18_resume(tmp)
+    finally:
+        _p18_exit_finish(started)
+    wall = time.perf_counter() - t0
+    log("phase 18: " + json.dumps(numbers))
+    log("phase 18: correlation launches on its paths " + json.dumps({
+        way: {k: n - before[way][k] for k, n in by_dtype.items()}
+        for way, by_dtype in PATH_LAUNCHES.items()}))
+    log(f"phase 18: wall time {wall:.1f} s (budget {PHASE18_BUDGET_S} s"
+        f"{', over it' if wall > PHASE18_BUDGET_S else ''})")
+
+
 def main(argv=None):
     import torch
 
@@ -3488,9 +3816,19 @@ def main(argv=None):
         log(f"chip_smoke.py --phase17: passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    if argv == ["--phase18"]:
+        # phases 0 and 18 alone; no result line
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase18_async_checkpoints(tmp)
+        _check_no_child_left()
+        log(f"chip_smoke.py --phase18: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
-                         "--phase14, --phase15, --phase16 or --phase17)")
+                         "--phase14, --phase15, --phase16, --phase17 or "
+                         "--phase18)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -3527,6 +3865,7 @@ def main(argv=None):
         phase15_data_parallel_and_spatial(tmp, ckpt, tree)
         phase16_convert(tmp, tree, c_params)
         phase17_serving_levers(tmp, tree, ckpt)
+        phase18_async_checkpoints(tmp)
 
     _check_no_child_left()
     log(f"chip_smoke.py: every phase passed in "

@@ -161,7 +161,7 @@ def mesh_for_batch(batch_size: int, n_devices: int) -> int:
     return n
 
 
-def shard_batch(batch, device="cpu"):
+def shard_batch(batch, device):
     """This process's batch as tensors on ``device``, each in its own
     dtype. Under several processes it is the process's local shard: the
     global batch is its size times :func:`process_count`, and DDP
@@ -196,7 +196,7 @@ class DevicePrefetcher:
 
     _DONE = object()
 
-    def __init__(self, batches, device="cpu", depth: int = 2,
+    def __init__(self, batches, device, depth: int = 2,
                  threaded: bool = True, transform=None):
         self._src = batches
         self._device = torch.device(device)
@@ -223,7 +223,8 @@ class DevicePrefetcher:
         if self._device.type != "cuda":
             return shard_batch(self._transform(host_batch),
                                self._device), None
-        tensors = shard_batch(self._transform(host_batch))
+        # staged on the host first: pinned, then uploaded on the stream
+        tensors = shard_batch(self._transform(host_batch), "cpu")
         stream = self._stream or torch.cuda.current_stream(self._device)
         with torch.cuda.stream(stream):
             out = {k: (t if t.is_cuda else t.pin_memory()).to(

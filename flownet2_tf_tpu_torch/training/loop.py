@@ -38,9 +38,20 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   draws per microbatch; the distribution is the same);
 * orbax -> ``log_dir/checkpoints/<step>/`` holding ``params.npz`` (JAX
   layout, flat '/' keys, read by both packages' ``load_params_tree``) and
-  ``optimizer.pt`` (Adam state and step). Saving is synchronous (the JAX
-  package saves asynchronously); keep-K and auto-resume from the newest
-  are the same, and so is the interrupt checkpoint in ``finally``;
+  ``optimizer.pt`` (Adam state and step). Orbax's asynchronous manager
+  (``enable_async_checkpointing=True``) -> :meth:`Trainer.save`: the
+  training thread takes a host snapshot of the step's state (the
+  parameters, ``warmstart.layer_params``, and ``optimizer.state_dict()``
+  copied into host buffers that every save reuses, pinned on a card),
+  which costs it one device-to-host copy of the checkpoint and nothing
+  else; a non-daemon writer thread then relays the parameters out to the
+  JAX layout, writes
+  ``<step>.tmp/``, renames it to ``<step>/`` and prunes to the newest
+  ``keep_checkpoints``. One save is in flight at a time, as in
+  orbax; ``save(state, wait=True)`` is orbax's ``save`` plus
+  ``wait_until_finished``, and a failed write is re-raised on the
+  training thread. Auto-resume from the newest is the same, and so is
+  the interrupt checkpoint in ``finally``, which waits;
 * ``device_prefetch`` -> ``fit`` feeds its steps through
   ``parallel/mesh.py::DevicePrefetcher``: on a card a worker thread pins
   batch k+1 and uploads it on a copy stream while step k runs
@@ -67,19 +78,26 @@ Port of ``flownet2_tf_tpu/training/loop.py`` (``TrainConfig``,
   and ``epe`` are all-reduced, and ``grad_norm`` is taken on the reduced
   gradients, so every process logs the same numbers; only process 0
   prints them and writes TensorBoard, and only process 0 writes
-  checkpoints, with a barrier after each save. ``restore_or_init`` and
-  ``warm_start`` run on every process from the same files. ``evaluate``
-  reduces its sums over the group.
+  checkpoints, from its writer thread, which calls no collective. The
+  processes meet at a barrier only where a save is waited for
+  (``save(state, wait=True)`` and the end of ``fit``), never behind a
+  periodic save. ``restore_or_init`` and ``warm_start`` run on every
+  process from the same files. ``evaluate`` reduces its sums over the
+  group.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
 import shutil
+import sys
+import threading
 import time
+import traceback
 import warnings
 from typing import Any, Optional, Sequence
 
@@ -103,7 +121,8 @@ from flownet2_tf_tpu_torch.training.infer import pad_to_multiple, resolve_device
 from flownet2_tf_tpu_torch.training.warmstart import (
     PARAMS_FILE,
     apply_warm_starts,
-    flatten,
+    jax_layout,
+    layer_params,
     latest_checkpoint,
     load_jax_params,
     load_params_tree,
@@ -209,6 +228,29 @@ def step_seed(seed: int, step: int, rank: int = 0) -> int:
     return base ^ ((rank * _RANK_MIX) & _U64)
 
 
+def _tensors(tree):
+    """The tensors of nested dicts, lists and tuples, in a fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _with_tensors(tree, tensors):
+    """A deep copy of ``tree`` whose tensors, in :func:`_tensors`' order,
+    are taken from the iterator ``tensors``."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, dict):
+        return {k: _with_tensors(v, tensors) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_tensors(v, tensors) for v in tree)
+    return copy.deepcopy(tree)
+
+
 class Trainer:
     def __init__(self, config: TrainConfig):
         self.config = config
@@ -240,6 +282,14 @@ class Trainer:
         self._threaded_prefetch = _use_threaded_prefetch(
             config.device_prefetch)
         self._updating = False
+        # the save in flight (a writer thread) and the error it hit
+        self._writer = None
+        self._write_error = None
+        # the step of the newest checkpoint known complete on disk: the
+        # last one this trainer's writer committed, or the one it resumed
+        self._on_disk_step = None
+        # host copies of the last checkpoint's tensors, reused by the next
+        self._snapshot_buffers = []
 
     # -- state ------------------------------------------------------------
 
@@ -274,36 +324,135 @@ class Trainer:
 
     # -- checkpoints --------------------------------------------------------
 
-    def save(self, state: TrainState, barrier: bool = True):
-        """Write ``log_dir/checkpoints/<step>/`` (written aside, then
-        renamed into place) and keep the newest ``keep_checkpoints``. In a
-        process group only process 0 writes, and with ``barrier`` every
-        process waits until it has."""
+    def save(self, state: TrainState, wait: bool = False):
+        """Checkpoint ``state`` to ``log_dir/checkpoints/<step>/``, as the
+        JAX package's ``save(state, wait)`` does through orbax.
+
+        Process 0 first waits for its previous save (one is in flight at
+        a time) and re-raises that save's error, if it failed; then it
+        copies the state to the host on this thread and hands the copy
+        to a writer thread, and returns. The writer writes
+        ``<step>.tmp/``, renames it to ``<step>/`` and only then prunes
+        to the newest ``keep_checkpoints``; a failed write leaves no
+        ``<step>/``. With ``wait`` the call returns once ``<step>/`` is
+        complete, and every process of a group then waits for the others
+        at a barrier; without ``wait`` there is no barrier. The other
+        processes write nothing."""
         if mesh.process_index() == 0:
-            self._write_checkpoint(state)
-        if barrier:
+            self.wait_until_finished()
+            params, optimizer = self._snapshot(
+                (layer_params(state.model), state.optimizer.state_dict()))
+            self._writer = threading.Thread(
+                target=self._run_writer,
+                args=(state.step, params, optimizer),
+                name=f"checkpoint-writer-{state.step}", daemon=False)
+            self._writer.start()
+            if wait:
+                self.wait_until_finished()
+        if wait:
             mesh.barrier()
 
-    def _write_checkpoint(self, state: TrainState):
+    def _snapshot(self, tree):
+        """``tree`` with each tensor copied to the host: copies, all of
+        them, because the next ``optimizer.step()`` updates the parameters
+        and Adam's moments and step counts in place. The copies land in
+        buffers kept from the last save (pinned on a card, so the copy is
+        one DMA at the link's rate and touches no new page); a save
+        reuses them only after the previous write has ended. They hold one
+        checkpoint's worth of host memory for the trainer's life."""
+        live = _tensors(tree)
+        bufs = self._snapshot_buffers
+        if [(b.shape, b.dtype) for b in bufs] != [(t.shape, t.dtype)
+                                                  for t in live]:
+            pin = self.device.type == "cuda"
+            bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                    for t in live]
+            self._snapshot_buffers = bufs
+        for buf, t in zip(bufs, live):
+            buf.copy_(t, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return _with_tensors(tree, iter(bufs))
+
+    def wait_until_finished(self):
+        """Return once this trainer's save in flight, if any, is on disk;
+        re-raise here, once, the error its writer hit."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        error, self._write_error = self._write_error, None
+        if error is not None:
+            raise error
+
+    def _run_writer(self, step, params, optimizer):
+        # a non-daemon thread: a process that exits normally after
+        # save() still finishes the write first
+        try:
+            self._write_checkpoint(step, params, optimizer)
+        except BaseException as e:  # re-raised on the training thread
+            e.add_note(f"raised by the checkpoint writer of step {step}: "
+                       "the checkpoint was not written")
+            self._write_error = e
+            # said at once too: a process that exits without waiting
+            # would never raise it
+            print(f"warning: the checkpoint of step {step} was not "
+                  f"written: {e!r}", file=sys.stderr, flush=True)
+
+    def _write_checkpoint(self, step, params, optimizer):
         root = os.path.join(self.config.log_dir, "checkpoints")
-        final = os.path.join(root, str(state.step))
+        final = os.path.join(root, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, PARAMS_FILE),
-                 **flatten(to_jax_params(state.model)))
-        torch.save({"step": state.step,
-                    "optimizer": state.optimizer.state_dict()},
-                   os.path.join(tmp, OPTIMIZER_FILE))
+        try:
+            np.savez(os.path.join(tmp, PARAMS_FILE), **jax_layout(params))
+            torch.save({"step": step, "optimizer": optimizer},
+                       os.path.join(tmp, OPTIMIZER_FILE))
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
         shutil.rmtree(final, ignore_errors=True)
         os.replace(tmp, final)
+        self._on_disk_step = step
         steps = sorted(int(e) for e in os.listdir(root) if e.isdigit())
         for old in steps[:-max(1, self.config.keep_checkpoints)]:
             shutil.rmtree(os.path.join(root, str(old)))
 
+    def _save_on_interrupt(self, state, error):
+        """``fit``'s body raised ``error``: process 0 lets the write in
+        flight end, then saves the step it has unless that step is the
+        newest complete on disk, and waits for the write, with no barrier,
+        which a peer that died would never reach. So a step whose write
+        failed (``error`` may be that failure) is written once more."""
+        self._wait_noting(error)
+        if self._updating:
+            # an exception inside optimizer.step() may have left the
+            # parameters half updated: keep the last good checkpoint
+            print("warning: interrupt checkpoint skipped - the failing "
+                  "step was inside the optimizer update; the newest "
+                  "checkpoint on disk is unchanged", flush=True)
+        elif state.step != self._on_disk_step:
+            self._wait_noting(error, state)
+
+    def _wait_noting(self, error, state=None):
+        """Save ``state`` if given, then wait for the write in flight; a
+        writer error found here is printed and noted on ``error``, which
+        propagates."""
+        try:
+            if state is not None:
+                self.save(state)
+            self.wait_until_finished()
+        except Exception as write_error:
+            print("warning: a checkpoint write failed while fit was "
+                  "handling another error:", file=sys.stderr, flush=True)
+            traceback.print_exception(write_error, file=sys.stderr)
+            error.add_note(f"a checkpoint write failed too: {write_error!r}")
+
     def restore_or_init(self):
         """Auto-resume from the newest checkpoint in log_dir, else init.
-        Returns ``(state, resumed)``."""
+        Returns ``(state, resumed)``. Waits for this trainer's save in
+        flight first."""
+        self.wait_until_finished()
         state = self.init_state()
         latest = latest_checkpoint(self.config.log_dir)
         if latest is None:
@@ -313,12 +462,15 @@ class Trainer:
                            map_location=self.device, weights_only=True)
         state.optimizer.load_state_dict(saved["optimizer"])
         state.step = int(saved["step"])
+        self._on_disk_step = state.step
         return state, True
 
     def warm_start(self, state: TrainState, checkpoints) -> TrainState:
         """Load prior-stage checkpoints into sub-scopes: ``checkpoints`` is
         ``{path: (src_scope, dst_scope)}`` or ``[(path, src, dst), ...]``
-        ('' selects the root), as in ``warmstart.apply_warm_starts``."""
+        ('' selects the root), as in ``warmstart.apply_warm_starts``.
+        Waits for this trainer's save in flight first."""
+        self.wait_until_finished()
         tree = apply_warm_starts(to_jax_params(state.model), checkpoints)
         load_jax_params(state.model, tree)
         return state
@@ -515,6 +667,7 @@ class Trainer:
             threaded=self._threaded_prefetch, transform=self._wire)
         t_last = time.perf_counter()
         examples_since = 0
+        body_error = None
         try:
             for batch, device_batch in batches:
                 if state.step >= max_steps:
@@ -556,19 +709,16 @@ class Trainer:
                     saved_step = step
             if state.step != saved_step:
                 self.save(state)
-                saved_step = state.step
+            # the newest checkpoint complete, then every process together
+            self.wait_until_finished()
+            mesh.barrier()
+        except BaseException as e:
+            body_error = e
+            raise
         finally:
             batches.close()
-            if self._updating:
-                # an exception inside optimizer.step() may have left the
-                # parameters half updated: keep the last good checkpoint
-                print("warning: interrupt checkpoint skipped - the failing "
-                      "step was inside the optimizer update; the newest "
-                      "checkpoint on disk is unchanged", flush=True)
-            elif state.step != saved_step:
-                # interrupted: process 0 saves what it has, with no
-                # barrier, which a peer that died would never reach
-                self.save(state, barrier=False)
+            if body_error is not None:
+                self._save_on_interrupt(state, body_error)
             if writer:
                 writer.close()
         return state

@@ -233,15 +233,29 @@ def load_jax_params(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+def layer_params(module: nn.Module):
+    """``[(scope, to_jax, weights, biases)]``: each Conv/Deconv layer's
+    live f32 parameters (detached, on their device) and the function that
+    relays its weights out to the JAX layout."""
+    return [(scope, layer.to_jax, layer.weights.detach().float(),
+             layer.biases.detach().float())
+            for scope, layer in _layers(module)]
+
+
+def jax_layout(params):
+    """:func:`layer_params`' parameters (or host copies of them) as a flat
+    JAX-layout dict of new numpy arrays: conv weights OIHW -> HWIO, deconv
+    weights unflipped back to forward-conv HWIO (trap C2)."""
+    flat = {}
+    for scope, to_jax, weights, biases in params:
+        # copies: on the CPU .numpy() would alias the tensors given
+        flat[_key(scope, "weights")] = np.array(
+            to_jax(weights.cpu().numpy()), order="C")
+        flat[_key(scope, "biases")] = np.array(biases.cpu().numpy())
+    return flat
+
+
 def to_jax_params(module: nn.Module):
     """``module``'s parameters as a JAX-layout tree of f32 numpy arrays
-    (the inverse of :func:`load_jax_params`): conv weights OIHW -> HWIO,
-    deconv weights unflipped back to forward-conv HWIO (trap C2)."""
-    flat = {}
-    for scope, layer in _layers(module):
-        # copies: on the CPU .numpy() would alias the live parameters
-        w = layer.weights.detach().float().cpu().numpy()
-        flat[_key(scope, "weights")] = np.array(layer.to_jax(w), order="C")
-        flat[_key(scope, "biases")] = np.array(
-            layer.biases.detach().float().cpu().numpy())
-    return unflatten(flat)
+    (the inverse of :func:`load_jax_params`)."""
+    return unflatten(jax_layout(layer_params(module)))

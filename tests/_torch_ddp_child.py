@@ -24,7 +24,12 @@ metrics) and ``<result>.<rank>.npz`` (its parameters in the JAX layout):
   augmentation on (``preprocess``) from one seed. Each step's augmented
   ``image_a`` goes to ``<result>.<rank>.aug.npz``. A second run stops
   after one step, and a fresh trainer resumes it from its checkpoint to
-  ``steps``: its parameters go to ``<result>.<rank>.resumed.npz``.
+  ``steps``: its parameters go to ``<result>.<rank>.resumed.npz``;
+* ``mode: "async"``: ``Trainer.fit`` for ``steps`` steps with an
+  asynchronous checkpoint after each into ``log_dir``, then the same
+  steps driven by hand with ``train_step`` and ``save(wait=True)`` into
+  ``<log_dir>_sync``. The rank records the steps whose checkpoints it
+  wrote (``writes``).
 """
 
 import json
@@ -101,6 +106,33 @@ def _augmented_runs(cfg, shard, spec, prefix):
     return state
 
 
+def _async_and_sync_runs(cfg, shard, spec, out):
+    """``mode: "async"``: the fit with asynchronous saves, then the
+    synchronous run by hand; returns the fit's state."""
+    writes = []
+    real = Trainer._write_checkpoint
+
+    def counted(self, step, *args):
+        writes.append(step)
+        return real(self, step, *args)
+
+    cfg = dict(cfg, checkpoint_every=1, keep_checkpoints=1)
+    Trainer._write_checkpoint = counted
+    try:
+        state = Trainer(TrainConfig(**cfg)).fit(ShardLoader(shard),
+                                                max_steps=spec["steps"])
+        sync = Trainer(TrainConfig(**dict(
+            cfg, log_dir=spec["log_dir"] + "_sync")))
+        sync_state = sync.init_state()
+        for _ in range(spec["steps"]):
+            sync.train_step(sync_state, shard)
+            sync.save(sync_state, wait=True)
+    finally:
+        Trainer._write_checkpoint = real
+    out["writes"] = writes
+    return state
+
+
 def main(spec_path):
     with open(spec_path) as f:
         spec = json.load(f)
@@ -136,6 +168,8 @@ def main(spec_path):
                     out[f"{k}{i}"] = float(metrics[k])
         elif spec["mode"] == "augment":
             state = _augmented_runs(cfg, shard, spec, prefix)
+        elif spec["mode"] == "async":
+            state = _async_and_sync_runs(cfg, shard, spec, out)
         elif spec.get("fail_after"):
             trainer = Trainer(TrainConfig(**cfg))
             state = trainer.init_state()

@@ -543,7 +543,7 @@ def test_warm_started_frozen_cs_step(tmp_path):
     leaves them bitwise unchanged (no gradient enters them) and moves S."""
     c_trainer = Trainer(_cfg(tmp_path, "c", model="c"))
     c_state = c_trainer.init_state()
-    c_trainer.save(c_state)
+    c_trainer.save(c_state, wait=True)
     c_flat = warmstart.flatten(warmstart.to_jax_params(c_state.model))
 
     trainer = Trainer(_cfg(tmp_path, "cs", model="cs"))
@@ -610,9 +610,9 @@ def test_resume_is_sample_exact(tmp_path):
 def test_jax_package_reads_port_checkpoint(tmp_path):
     trainer = Trainer(_cfg(tmp_path, "run", keep_checkpoints=1))
     state = trainer.init_state()
-    trainer.save(state)
+    trainer.save(state, wait=True)
     state.step = 3
-    trainer.save(state)
+    trainer.save(state, wait=True)
     assert os.listdir(tmp_path / "run" / "checkpoints") == ["3"]
     path = tmp_path / "run" / "checkpoints" / "3" / "params.npz"
     tree = jws.load_params_tree(str(path))  # the JAX package's reader
