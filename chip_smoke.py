@@ -41,8 +41,11 @@ weights:
 * phase 12, serving: FlowNet2 exported at 448x1024 b1 through ``cli
   export --aot`` on the card (f32 exact warps, f32 and bf16 half-res
   warps), a bundle of 448x1024, 384x1280 and 448x1024x8 (bf16 half), and
-  a 192x256 f32 artifact; each loaded in a fresh process that imports no
-  model module, one correlation launch per served call counted there;
+  a 192x256 f32 artifact, each traced in a child process of its own, all
+  at once (with phases 17 and 19's exports in the full run); loaded in
+  fresh processes started beside them that import no model module, the
+  card's artifacts served one process at a time once all have loaded,
+  one correlation launch per served call counted there;
   the f32 artifact held against the eager forward (with TF32 allowed by
   the caller, too), the half-res artifacts against the same exports
   served on the CPU, ``cli serve`` against ``cli test``; export, load and
@@ -107,7 +110,7 @@ weights:
   CUDA graph bitwise ``cli test`` with one correlation launch per call,
   the CPU graph with none and within 1e-2 px mean EPE of it; artifact MB,
   load s and served against eager ms/pair; (b) ``cli bench`` A/Bs, each
-  knob against its exact counterpart in turns (exact, knobs, exact):
+  knob against its exact counterpart run just before it (exact, knobs):
   ``--fusion_res 2`` and ``--f32_features default`` at f32 b1,
   ``--fusion_res 2`` and ``FLOWNET2_TPU_BF16_INTERCONV=1`` at bf16 b8,
   each floored at the peaks of the precisions it runs, and each knob's
@@ -128,6 +131,21 @@ weights:
   exits at once leaves a complete checkpoint, which ``restore_or_init``
   resumes bitwise. Its checkpoints are deleted at its end.
   ``--phase18`` runs phases 0 and 18 alone.
+* phase 19, multi-device serving on the one card, FlowNet2 f32 with exact
+  warps at 448x1024 from phase 2's weights: (a) ``cli export --aot
+  --data_parallel 2 --batch 2`` loaded with ``devices=["cuda:0",
+  "cuda:0"]``, each replica's rows bitwise those of the batch-1 artifact
+  (phase 12's; else within 1e-2 px mean EPE, the reason printed); (b)
+  ``load_serving`` of it with the default devices refuses on one card
+  (on two or more it places the replicas on ``cuda:0`` and ``cuda:1``);
+  (c) ``infer_flow_spatial`` with 2 bands at overlap 64 on
+  ``["cuda:0", "cuda:0"]`` against the bands as one batch, and phase
+  15's spatial artifact loaded on those devices (its band graph) against
+  its one-graph load, each within 1e-2 px mean EPE; (d) served ms/pair
+  of (a) against the single-device b2 artifact (CUDA events, median of
+  5). The correlation launches of (a) and (c) are counted exactly.
+  ``--phase19`` runs phases 0 and 19 alone (its artifacts exported
+  there, in child processes at once).
 
 Every child process (phase 12's and phase 15's workers, the DDP ranks,
 ``nvidia-smi``, the compilers) starts in its own session with its output
@@ -345,18 +363,23 @@ def corr_profile_ms(fn):
         for k, v in names.items()}
 
 
-def phase0_device_and_build():
-    import torch
-
-    from flownet2_tf_tpu_torch.ops.cuda import _build, correlation_kernel
-
+def _smi():
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
     from flownet2_tf_tpu_torch.utils import procs
 
     rc, smi = procs.run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"], timeout=60)
     if rc != 0:
         raise AssertionError(f"nvidia-smi failed ({rc}): {smi}")
-    smi = smi.strip()
+    return smi.strip()
+
+
+def phase0_device_and_build():
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import _build, correlation_kernel
+
+    smi = _smi()
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     t0 = time.perf_counter()
@@ -1309,13 +1332,25 @@ def serve_worker(spec_path):
     if spec.get("threads"):
         torch.set_num_threads(spec["threads"])
     if spec.get("wait_for"):
-        # started ahead: the card ready, then wait for the artifact
+        # started ahead: the card ready, then wait for the artifacts
         if torch.cuda.is_available():
             torch.cuda.init()
-        _wait_for_file(spec["wait_for"])
+        for path in spec["wait_for"]:
+            _wait_for_file(path)
     ck.reset_launch_counts()
-    calls, results = 0, []
+    # every artifact loaded first; a gated worker then waits for its go,
+    # so that its timed calls never meet another process's work
+    loads = []
     for task in spec["tasks"]:
+        t0 = time.perf_counter()
+        loads.append(None if task["kind"] == "cli_serve" else (
+            load_serving(task["artifact"], device=task.get("device")),
+            time.perf_counter() - t0))
+    if spec.get("go"):
+        _go(spec["ready"])
+        _wait_for_file(spec["go"])
+    calls, results = 0, []
+    for task, loaded in zip(spec["tasks"], loads):
         t0 = time.perf_counter()
         if task["kind"] == "cli_serve":
             from flownet2_tf_tpu_torch import cli
@@ -1331,8 +1366,8 @@ def serve_worker(spec_path):
             continue
         # a task may name the platform to serve (a multi-platform
         # artifact); else the artifact's one platform
-        sm = load_serving(task["artifact"], device=task.get("device"))
-        res = {"load_s": time.perf_counter() - t0}
+        sm, load_s = loaded
+        res = {"load_s": load_s}
         device = torch.device(task.get("device")
                               or sm.meta["platforms"][0])
         gen = torch.Generator(device=device).manual_seed(SEED)
@@ -1403,18 +1438,82 @@ def serve_worker(spec_path):
     return 0
 
 
-def _start_worker(tmp, name, tasks, threads=None, wait_for=None):
-    """Start a fresh ``serve_worker`` process on ``tasks`` (once the file
-    ``wait_for``, if given, exists)."""
+def _start_worker(tmp, name, tasks, threads=None, wait_for=(), gated=False):
+    """Start a fresh ``serve_worker`` process on ``tasks`` (once every file
+    of ``wait_for`` exists). A ``gated`` worker loads its artifacts and
+    then waits for its go (:func:`_wait_ready`)."""
     spec = os.path.join(tmp, f"serve_{name}.json")
     result = os.path.join(tmp, f"serve_{name}_result.json")
+    gate = {"ready": spec + ".ready", "go": spec + ".go"} if gated else {}
     with open(spec, "w") as f:
         json.dump({"tasks": tasks, "result": result, "threads": threads,
-                   "wait_for": wait_for}, f)
+                   "wait_for": list(wait_for), **gate}, f)
     log_path = os.path.join(tmp, f"serve_{name}.log")
     proc = _start_child("serve_worker", spec, log_path)
     return {"name": name, "proc": proc, "result": result, "log": log_path,
-            "t0": time.perf_counter()}
+            "t0": time.perf_counter(), **gate}
+
+
+def _wait_ready(worker):
+    """Wait until a gated worker has loaded its artifacts (or has exited:
+    its failure then shows in _finish_worker). ``_go(worker["go"])``
+    then lets it serve."""
+    t0 = time.perf_counter()
+    while not os.path.exists(worker["ready"]):
+        if (worker["proc"].poll() is not None
+                or time.perf_counter() - t0 > CHILD_TIMEOUT_S):
+            return
+        time.sleep(0.05)
+
+
+def _start_export(tmp, key, job, nice=0):
+    """Start an export into ``<tmp>/<key>.flowpak`` in a child process
+    (at niceness ``nice``): ``cli export --aot`` of ``job``'s arguments
+    (a list), or ``export_serving`` of FlowNet2 at 448x1024 with
+    ``job``'s keyword arguments and its ``ckpt`` (a dict). Its result
+    file appears once the artifact is whole: a worker started ahead waits
+    for it (``done``)."""
+    path = os.path.join(tmp, f"{key}.flowpak")
+    spec = os.path.join(tmp, f"export_{key}.json")
+    with open(spec, "w") as f:
+        json.dump({"result": spec + ".out", "nice": nice, **(
+            {"argv": [*job, "--out", path]} if isinstance(job, list) else
+            {"api": dict(job, out_path=path)})}, f)
+    log_path = os.path.join(tmp, f"export_{key}.log")
+    return {"key": key, "path": path, "done": spec + ".out", "log": log_path,
+            "proc": _start_child("export_worker", spec, log_path)}
+
+
+def _export_done(started):
+    """Wait for an export's child; returns (metadata, its export's wall
+    s)."""
+    _wait_child(started["proc"], started["log"],
+                f"export {started['key']}")
+    with open(started["done"]) as f:
+        out = json.load(f)
+    return out["meta"], out["wall_s"]
+
+
+def _exported(tmp, jobs, ahead=None):
+    """{key: (path, metadata, export wall s)} of the exports ``jobs``
+    ({key: job of _start_export}): those in ``ahead`` (traced in phase
+    12's children), the others traced now, each in a child of its own,
+    all at once."""
+    got = {k: ahead[k] for k in jobs if k in (ahead or {})}
+    started = {k: _start_export(tmp, k, job) for k, job in jobs.items()
+               if k not in got}
+    for k, job in started.items():
+        got[k] = (job["path"], *_export_done(job))
+    return got
+
+
+def _f2_export_argv(ckpt, *argv):
+    """``cli export --aot`` arguments of FlowNet2 f32 with exact warps at
+    448x1024 from ``ckpt``, then ``argv``."""
+    h, w = SERVE_HW
+    return ["--model", "2", "--ckpt", ckpt, "--height", str(h), "--width",
+            str(w), "--compute_dtype", "float32", "--warp_mode", "full",
+            *argv]
 
 
 def _finish_worker(worker, dtype):
@@ -1453,9 +1552,12 @@ def _eager_ms(model, batch, cd, inputs):
     return statistics.median(times) / batch, min(times) / batch
 
 
-def phase12_serving(tmp, tree, ckpt, phase2_flo):
+def phase12_serving(tmp, tree, ckpt, phase2_flo, extra_exports=None):
     """FlowNet2 serving artifacts through ``cli export --aot`` and ``cli
-    serve``, each loaded in a fresh process (see the module docstring)."""
+    serve``, each loaded in a fresh process (see the module docstring).
+    ``extra_exports`` ({key: job of _start_export}) are later phases'
+    exports, traced in this phase's children beside its own; returns
+    {key: (path, metadata, export wall s)} of them."""
     import numpy as np
     import torch
 
@@ -1474,67 +1576,103 @@ def phase12_serving(tmp, tree, ckpt, phase2_flo):
     shape = ["--height", str(h), "--width", str(w)]
     configs = {"f32_full": ("float32", "full"), "f32_half": ("float32", "half"),
                "bf16_half": ("bfloat16", "half")}
-    paths, exports = {}, []
-
-    def export(key, argv):
-        paths[key] = os.path.join(tmp, f"{key}.flowpak")
-        meta, wall = _cli_export(["--model", "2", "--ckpt", ckpt, "--out",
-                                  paths[key], *argv])
-        exports.append((key, wall))
-        return meta
-
-    # the half-res exports on the CPU, served there in the background
-    # while the card's exports trace
-    for key in ("f32_half", "bf16_half"):
-        dtype, mode = configs[key]
-        export(f"cpu_{key}", ["--compute_dtype", dtype, "--warp_mode", mode,
-                              "--device", "cpu", *shape])
+    card = ["--model", "2", "--ckpt", ckpt, "--device", "cuda"]
+    jobs = {f"cpu_{key}": ["--model", "2", "--ckpt", ckpt, "--device", "cpu",
+                           "--compute_dtype", configs[key][0], "--warp_mode",
+                           configs[key][1], *shape]
+            for key in ("f32_half", "bf16_half")}
+    for key, (dtype, mode) in configs.items():
+        jobs[key] = card + ["--compute_dtype", dtype, "--warp_mode", mode,
+                            *shape]
+    jobs["bundle"] = card + ["--shapes", "448x1024,384x1280,448x1024x8"]
+    jobs["serve_192"] = card + ["--compute_dtype", "float32", "--warp_mode",
+                                "full", "--height", "192", "--width", "256"]
+    # every export traces in a child of its own at once (tracing is host
+    # work on one core), the later phases' at a lower priority; each
+    # serving process starts beside them, waits for its artifacts and
+    # loads them: the CPU artifacts and cli serve then serve at once, the
+    # card artifacts once released, one process at a time
+    own = {key: _start_export(tmp, key, argv) for key, argv in jobs.items()}
+    later = {key: _start_export(tmp, key, job, nice=10)
+             for key, job in (extra_exports or {}).items()}
+    started = {**own, **later}
+    paths = {key: job["path"] for key, job in started.items()}
+    done = {key: job["done"] for key, job in started.items()}
+    flows = {key: os.path.join(tmp, f"{key}_flow.npy") for key in configs}
     cpu_worker = _start_worker(tmp, "cpu", [{
         "kind": "single", "artifact": paths[f"cpu_{key}"], "pair": pair,
         "flow_out": os.path.join(tmp, f"cpu_{key}_flow.npy")}
-        for key in ("f32_half", "bf16_half")], threads=6)
-    for key, (dtype, mode) in configs.items():
-        export(key, ["--compute_dtype", dtype, "--warp_mode", mode,
-                     "--device", "cuda", *shape])
-    bundle_meta = export("bundle", ["--shapes", "448x1024,384x1280,448x1024x8",
-                                    "--device", "cuda"])
+        for key in ("f32_half", "bf16_half")], threads=4,
+        wait_for=[done["cpu_f32_half"], done["cpu_bf16_half"]])
+    out_dir = os.path.join(tmp, "serve_out")
+    cli_worker = _start_worker(tmp, "cli_serve", [{
+        "kind": "cli_serve", "artifact": paths["serve_192"],
+        "input_a": os.path.join(SAMPLES, "0img0.ppm"),
+        "input_b": os.path.join(SAMPLES, "0img1.ppm"), "out": out_dir}],
+        wait_for=[done["serve_192"]])
+    # f32_full last: its TF32 check leaves the caller's TF32 flags on
+    workers = {"float32": _start_worker(tmp, "f32", [{
+        "kind": "single", "artifact": paths[key], "pair": pair,
+        "flow_out": flows[key], "tf32_check": key == "f32_full"}
+        for key in ("f32_half", "f32_full")],
+        wait_for=[done["f32_half"], done["f32_full"]], gated=True),
+        "bfloat16": _start_worker(tmp, "bf16", [{
+            "kind": "single", "artifact": paths["bf16_half"], "pair": pair,
+            "flow_out": flows["bf16_half"]}, {
+            "kind": "bundle", "artifact": paths["bundle"],
+            "shapes": [[1, 448, 1024], [1, 384, 1280], [8, 448, 1024]],
+            "time_shape": [8, 448, 1024], "pair_hw": list(SINTEL_HW)}],
+            wait_for=[done["bf16_half"], done["bundle"]], gated=True)}
+    metas, walls = {}, {}
+
+    def wait_exports(jobs):
+        for key, job in jobs.items():
+            metas[key], walls[key] = _export_done(job)
+            log(f"phase 12: export {key} (a child of its own): "
+                f"{walls[key]:.2f} s, "
+                f"{os.path.getsize(paths[key]) / 1e6:.1f} MB")
+        log(f"phase 12: {len(jobs)} exports done at "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    wait_exports(own)
+    bundle_meta = metas["bundle"]
     if (bundle_meta["compute_dtype"], bundle_meta["warp_mode"]) != (
             "bfloat16", "half"):
         raise AssertionError(f"export defaults: {bundle_meta}")
-    export("serve_192", ["--compute_dtype", "float32", "--warp_mode", "full",
-                         "--device", "cuda", "--height", "192", "--width",
-                         "256"])
-    for key, wall in exports:
-        log(f"phase 12: cli export --aot {key}: {wall:.2f} s, "
-            f"{os.path.getsize(paths[key]) / 1e6:.1f} MB")
     _, _, wall = _finish_worker(cpu_worker, None)
     log(f"phase 12: the CPU artifacts served in a fresh process ({wall:.1f} "
         f"s from its start; phase at {time.perf_counter() - t0:.1f} s)")
+    results, _, wall = _finish_worker(cli_worker, "float32")
+    line = json.loads(results[0]["line"].splitlines()[-1])
+    if results[0]["rc"] != 0:
+        raise AssertionError(f"phase 12: cli serve {results[0]}")
+    log(f"phase 12: cli serve (fresh process, {wall:.1f} s): {line}")
 
-    # each card artifact served in a fresh process
-    flows, served = {}, {}
-    for key, (dtype, _) in configs.items():
-        flows[key] = os.path.join(tmp, f"{key}_flow.npy")
-        results, calls, wall = _finish_worker(_start_worker(tmp, key, [{
-            "kind": "single", "artifact": paths[key], "pair": pair,
-            "flow_out": flows[key], "tf32_check": key == "f32_full"}]),
-            dtype)
-        served[key] = results[0]
-        log(f"phase 12: {key} served in a fresh process ({wall:.1f} s): "
-            f"load {results[0]['load_s']:.2f} s, {calls} calls, one "
-            f"correlation launch each on {dtype} features; two served "
-            f"calls bitwise equal: {results[0]['same']} (mean EPE "
-            f"{results[0]['spread_px']:.3e} px apart)")
-        if not results[0]["same"]:
+    # the card artifacts served in two fresh processes, one at a time once
+    # both have loaded
+    for worker in workers.values():
+        _wait_ready(worker)
+    served = {}
+    for dtype, worker in workers.items():
+        waited = time.perf_counter() - worker["t0"]
+        _go(worker["go"])
+        results, calls, wall = _finish_worker(worker, dtype)
+        log(f"phase 12: the {dtype} card artifacts served in a fresh process "
+            f"({wall:.1f} s from its start, {waited:.1f} s of it until its "
+            f"release): {calls} calls, one correlation launch each on "
+            f"{dtype} features")
+        keys = (["f32_half", "f32_full"] if dtype == "float32"
+                else ["bf16_half", "bundle_b8"])
+        served.update(zip(keys, results))
+    for key in configs:
+        res = served[key]
+        log(f"phase 12: {key} served: load {res['load_s']:.2f} s; two "
+            f"served calls bitwise equal: {res['same']} (mean EPE "
+            f"{res['spread_px']:.3e} px apart)")
+        if not res["same"]:
             raise AssertionError(f"phase 12 {key}: two served calls differ")
-    results, calls, wall = _finish_worker(_start_worker(tmp, "bundle", [{
-        "kind": "bundle", "artifact": paths["bundle"],
-        "shapes": [[1, 448, 1024], [1, 384, 1280], [8, 448, 1024]],
-        "time_shape": [8, 448, 1024], "pair_hw": list(SINTEL_HW)}]),
-        "bfloat16")
-    served["bundle_b8"] = bundle = results[0]
-    log(f"phase 12: bundle served in a fresh process ({wall:.1f} s): load "
-        f"{bundle['load_s']:.2f} s, {calls} calls; entries "
+    bundle = served["bundle_b8"]
+    log(f"phase 12: bundle served: load {bundle['load_s']:.2f} s; entries "
         f"{bundle['shapes']}; infer_pair at {SINTEL_HW} -> "
         f"{bundle['pair_flow']}")
     if (not all(x["finite"] and x["same"] for x in bundle["shapes"])
@@ -1542,16 +1680,6 @@ def phase12_serving(tmp, tree, ckpt, phase2_flo):
             != [[1, 448, 1024, 2], [1, 384, 1280, 2], [8, 448, 1024, 2]]
             or bundle["pair_flow"] != [*SINTEL_HW, 2]):
         raise AssertionError(f"phase 12: bundle dispatch {bundle}")
-    out_dir = os.path.join(tmp, "serve_out")
-    results, _, wall = _finish_worker(_start_worker(tmp, "cli_serve", [{
-        "kind": "cli_serve", "artifact": paths["serve_192"],
-        "input_a": os.path.join(SAMPLES, "0img0.ppm"),
-        "input_b": os.path.join(SAMPLES, "0img1.ppm"), "out": out_dir}]),
-        "float32")
-    line = json.loads(results[0]["line"].splitlines()[-1])
-    if results[0]["rc"] != 0:
-        raise AssertionError(f"phase 12: cli serve {results[0]}")
-    log(f"phase 12: cli serve (fresh process, {wall:.1f} s): {line}")
 
     # the eager forward on the card: cli test, flows, times
     test_flo, counts = _cli_test(ckpt, os.path.join(tmp, "out_again"),
@@ -1626,11 +1754,19 @@ def phase12_serving(tmp, tree, ckpt, phase2_flo):
     if not card_gap <= BF16_EPE_RATIO * cpu_gap:
         raise AssertionError(f"phase 12: bf16 card flow {card_gap} px from "
                              f"the CPU f32-half flow, CPU bf16 {cpu_gap} px")
+    for key in ("cpu_f32_half", "cpu_bf16_half", "f32_half", "bf16_half",
+                "bundle", "serve_192"):
+        os.remove(paths[key])
+    # the later phases' exports, traced beside this phase's work
+    wait_exports(later)
     # printed, not enforced: the hosts behind the card differ (the phase
-    # took 184-209 s across H100 runs), and the script's limit is what binds
+    # took 184-256 s with its exports one after another, 86-162 s with
+    # them in parallel), and the script's limit is what binds
     wall = time.perf_counter() - t0
     log(f"phase 12: wall time {wall:.1f} s (budget {PHASE12_BUDGET_S} s"
         f"{', over it' if wall > PHASE12_BUDGET_S else ''})")
+    return {key: (paths[key], metas[key], walls[key])
+            for key in extra_exports or {}}
 
 
 def _cli_lines(argv):
@@ -2359,11 +2495,25 @@ def ddp_worker(spec_path):
 
 
 def export_worker(spec_path):
-    """Phase 15 (d)'s first child: ``cli export --aot`` with the spec's
-    arguments; writes the metadata and the export's wall time."""
+    """An export in a child: ``cli export --aot`` with the spec's
+    ``argv``, or ``tools/aot.py::export_serving`` of FlowNet2 with its
+    ``api`` keyword arguments (knobs ``cli export`` has no flag for);
+    writes the metadata and the export's wall time."""
     with open(spec_path) as f:
         spec = json.load(f)
-    meta, wall = _cli_export(spec["argv"])
+    # a later phase's export yields the host to the running phase's work
+    os.nice(spec["nice"])
+    if "argv" in spec:
+        meta, wall = _cli_export(spec["argv"])
+    else:
+        from flownet2_tf_tpu_torch.tools import aot
+        from flownet2_tf_tpu_torch.training.warmstart import load_params_tree
+
+        kwargs = dict(spec["api"])
+        tree = load_params_tree(kwargs.pop("ckpt"))
+        t0 = time.perf_counter()
+        meta = aot.export_serving("2", tree, *SERVE_HW, **kwargs)
+        wall = time.perf_counter() - t0
     with open(spec["result"], "w") as f:
         json.dump({"meta": meta, "wall_s": wall}, f)
     return 0
@@ -2734,49 +2884,46 @@ def _p15c_cpu_check(started, card):
     np.testing.assert_allclose(card, cpu, rtol=FLOW_RTOL, atol=FLOW_ATOL)
 
 
-def _p15d_export(tmp, ckpt):
-    """(d) start ``cli export --aot --spatial_tiles 2 --spatial_overlap
-    64`` of FlowNet2 f32 at 448x1024 in a child process."""
-    h, w = SERVE_HW
-    path = os.path.join(tmp, "p15_spatial.flowpak")
-    spec = os.path.join(tmp, "p15_export.json")
-    with open(spec, "w") as f:
-        json.dump({"result": spec + ".out", "argv": [
-            "--model", "2", "--ckpt", ckpt, "--out", path, "--height",
-            str(h), "--width", str(w), "--compute_dtype", "float32",
-            "--warp_mode", "full", "--spatial_tiles", str(SPATIAL_TILES),
-            "--spatial_overlap", str(min(SPATIAL_OVERLAPS)), "--device",
-            "cuda"]}, f)
-    log_path = os.path.join(tmp, "p15_export.log")
-    return _start_child("export_worker", spec, log_path), spec, log_path, path
+def _p15_exports(ckpt):
+    """(d)'s export: ``cli export --aot --spatial_tiles 2
+    --spatial_overlap 64`` of FlowNet2 f32 at 448x1024."""
+    return {"p15_spatial": _f2_export_argv(
+        ckpt, "--device", "cuda", "--spatial_tiles", str(SPATIAL_TILES),
+        "--spatial_overlap", str(min(SPATIAL_OVERLAPS)))}
+
+
+def _p15d_export(tmp, ckpt, ahead=None):
+    """(d) the spatial artifact: phase 12's (in ``ahead``), else its
+    export started now in a child process."""
+    if ahead and "p15_spatial" in ahead:
+        path, meta, wall = ahead["p15_spatial"]
+        return {"path": path, "done": None, "result": (meta, wall)}
+    (key, job), = _p15_exports(ckpt).items()
+    return _start_export(tmp, key, job)
 
 
 def _p15d_serve(tmp, started, pair):
     """(d) start the fresh process that serves the artifact (two calls,
-    untimed) once the export's result file exists."""
-    _, spec, _, path = started
+    untimed) once the export is done."""
     flow_out = os.path.join(tmp, "p15_served.npy")
     worker = _start_worker(tmp, "p15_spatial", [{
-        "kind": "single", "artifact": path, "pair": pair,
-        "flow_out": flow_out, "timed": False}], wait_for=spec + ".out")
+        "kind": "single", "artifact": started["path"], "pair": pair,
+        "flow_out": flow_out, "timed": False}],
+        wait_for=[started["done"]] if started["done"] else [])
     return worker, flow_out
 
 
 def _p15d_check_export(started):
-    """(d) wait for the export's child and check its metadata."""
-    proc, spec, log_path, path = started
-    _wait_child(proc, log_path, "phase 15 (d) cli export --aot")
-    with open(spec + ".out") as f:
-        out = json.load(f)
-    meta = out["meta"]
+    """(d) wait for the export and check its metadata."""
+    meta, wall = started.get("result") or _export_done(started)
     if (meta["spatial_tiles"], meta["spatial_overlap"], meta["batch"]) != (
             SPATIAL_TILES, min(SPATIAL_OVERLAPS), 1):
         raise AssertionError(f"phase 15 (d): metadata {meta}")
     h, w = SERVE_HW
     log(f"phase 15 (d): cli export --aot --spatial_tiles {SPATIAL_TILES} "
         f"--spatial_overlap {min(SPATIAL_OVERLAPS)} FlowNet2 f32 {h}x{w} in "
-        f"a child: {out['wall_s']:.2f} s, {os.path.getsize(path) / 1e6:.1f} "
-        "MB")
+        f"a child: {wall:.2f} s, "
+        f"{os.path.getsize(started['path']) / 1e6:.1f} MB")
 
 
 def _p15d_finish(started, library_flow):
@@ -2918,11 +3065,13 @@ def _p15e_repair(tmp):
                              "are not repeatable")
 
 
-def phase15_data_parallel_and_spatial(tmp, ckpt, tree):
+def phase15_data_parallel_and_spatial(tmp, ckpt, tree, ahead=None):
     """Data parallelism and spatial tiling (see the module docstring).
     The children start first and wait, so that their start-up overlaps
     (c); while (c) runs the card does only (d)'s export beside it (its
-    tracing is host work). (e)'s device times come from the profiler;
+    tracing is host work; in the full run phase 12 traced it, in
+    ``ahead``, and (d)'s server loads there instead). (e)'s device times
+    come from the profiler;
     (a) runs last, with only (d)'s serving process beside it, whose load
     is host work. (b)'s ranks train beside its one-process run."""
     from flownet2_tf_tpu_torch.utils import procs
@@ -2933,7 +3082,7 @@ def phase15_data_parallel_and_spatial(tmp, ckpt, tree):
     try:
         # children started ahead: they import, reach the card and build,
         # then wait for their go (or, the server, for the artifact)
-        export = _p15d_export(tmp, ckpt)
+        export = _p15d_export(tmp, ckpt, ahead)
         served = _p15d_serve(tmp, export, pair)
         ranks = _p15b_start(tmp)
         ddp1 = _p15a_start(tmp)
@@ -3153,6 +3302,15 @@ P17_TRAIN_HW, P17_TRAIN_BATCH, P17_STEPS = (384, 512), 4, 2
 INTERCONV_ENV = "FLOWNET2_TPU_BF16_INTERCONV"
 
 
+def _p17_exports(ckpt):
+    """Phase 17's exports: (a) a graph per platform, (c) the half-res
+    fusion on the card."""
+    return {"p17_cuda_cpu": _f2_export_argv(ckpt, "--platforms", "cuda,cpu"),
+            "p17_fusion2": {"ckpt": ckpt, "compute_dtype": "float32",
+                            "warp_mode": "full", "fusion_res": 2,
+                            "device": "cuda"}}
+
+
 def _p17_pair(tmp):
     """A seeded 448x1024 pair written as PNGs (``cli test``'s input) and
     as the float arrays ``load_image_pair`` reads back from them (the
@@ -3207,13 +3365,13 @@ def _p17_bench(flags, env=None):
     return out
 
 
-def phase17_serving_levers(tmp, tree, ckpt):
+def phase17_serving_levers(tmp, tree, ckpt, ahead=None):
     """The last serving and approximation levers on the card (FlowNet2 at
     448x1024, phase 2's weights): (a) one ``cli export --aot --platforms
     cuda,cpu`` artifact served per platform in fresh processes, the CUDA
     graph bitwise ``cli test`` with one correlation launch per call, the
     CPU graph with none and within AEE_ATOL of it; (b) ``cli bench`` A/Bs
-    of each knob against its exact counterpart, in turns, with each
+    of each knob against its exact counterpart, with each
     knob's flow delta on the same weights; (c) a ``fusion_res=2``
     artifact served bitwise its eager model; (d) two ``cli train --model
     2 --fusion_res 2`` runs bitwise equal."""
@@ -3232,12 +3390,9 @@ def phase17_serving_levers(tmp, tree, ckpt):
     h, w = SERVE_HW
     (png_a, png_b), pair, a_np, b_np = _p17_pair(tmp)
 
-    # (a) one artifact, a graph per platform
-    both = os.path.join(tmp, "p17_cuda_cpu.flowpak")
-    meta, export_s = _cli_export([
-        "--model", "2", "--ckpt", ckpt, "--out", both, "--platforms",
-        "cuda,cpu", "--compute_dtype", "float32", "--warp_mode", "full",
-        "--height", str(h), "--width", str(w)])
+    # (a) one artifact, a graph per platform; (c)'s fusion_res=2 artifact
+    exports = _exported(tmp, _p17_exports(ckpt), ahead)
+    both, meta, export_s = exports["p17_cuda_cpu"]
     with zipfile.ZipFile(both) as z:
         sizes = {i.filename: i.file_size for i in z.infolist()}
     if (meta["platforms"] != ["cuda", "cpu"] or sorted(sizes) != [
@@ -3254,17 +3409,17 @@ def phase17_serving_levers(tmp, tree, ckpt):
         f"as a cuda-only export holds: {single_mb:.1f} MB)")
     flo = {p: os.path.join(tmp, f"p17_served_{p}.npy") for p in ("cuda",
                                                                  "cpu")}
-    # the CPU graph serves in the background while (c) and (d) run
+    # the CPU graph serves in the background while (c) and (d) run; the
+    # CUDA graph's process loads beside them and serves once released
     cpu_worker = _start_worker(tmp, "p17_cpu", [{
         "kind": "single", "artifact": both, "device": "cpu", "pair": pair,
         "flow_out": flo["cpu"]}], threads=6)
+    cuda_worker = _start_worker(tmp, "p17_cuda", [{
+        "kind": "single", "artifact": both, "device": "cuda", "pair": pair,
+        "flow_out": flo["cuda"]}], gated=True)
 
     # (c) the half-res fusion artifact against its eager model
-    f2 = os.path.join(tmp, "p17_fusion2.flowpak")
-    t1 = time.perf_counter()
-    meta2 = aot.export_serving("2", tree, h, w, f2, compute_dtype="float32",
-                               warp_mode="full", fusion_res=2, device="cuda")
-    export2_s = time.perf_counter() - t1
+    f2, meta2, export2_s = exports["p17_fusion2"]
     correlation_kernel.reset_launch_counts()
     a_t, b_t = (torch.from_numpy(x).cuda() for x in (a_np, b_np))
     served = aot.load_serving(f2)(a_t, b_t)
@@ -3314,10 +3469,11 @@ def phase17_serving_levers(tmp, tree, ckpt):
     results, _, cpu_wall = _finish_worker(cpu_worker, None)
     cpu_load = results[0]["load_s"]
     # the CUDA graph, timed with the host quiet
-    results, calls, wall = _finish_worker(_start_worker(tmp, "p17_cuda", [{
-        "kind": "single", "artifact": both, "device": "cuda", "pair": pair,
-        "flow_out": flo["cuda"]}]), "float32")
+    _wait_ready(cuda_worker)
+    _go(cuda_worker["go"])
+    results, calls, wall = _finish_worker(cuda_worker, "float32")
     cuda_res = results[0]
+    os.remove(both)
     correlation_kernel.reset_launch_counts()
     out_dir = os.path.join(tmp, "p17_cli_test")
     rc = _cli_lines(["test", "--model", "2", "--device", "cuda",
@@ -3346,20 +3502,19 @@ def phase17_serving_levers(tmp, tree, ckpt):
     if not (cuda_same and cuda_res["same"]) or not cpu_epe <= AEE_ATOL:
         raise AssertionError("phase 17 (a): the per-platform graphs")
 
-    # (b) each knob against its exact counterpart, in turns, and its flow
+    # (b) each knob against its exact counterpart, and its flow
     # delta on phase 2's weights at b1 on the pair
     f32 = ["--compute_dtype", "float32"]
     bf16_b8 = ["--batch", "8"]
     interconv = {INTERCONV_ENV: "1"}
+    # each exact counterpart runs once, just before its knobs
     order = [("f32 exact", f32, None), ("f32 fusion_res 2",
                                         f32 + ["--fusion_res", "2"], None),
              ("f32 f32_features default",
               f32 + ["--f32_features", "default"], None),
-             ("f32 exact again", f32, None),
              ("bf16 b8 exact", bf16_b8, None),
              ("bf16 b8 fusion_res 2", bf16_b8 + ["--fusion_res", "2"], None),
-             ("bf16 b8 bf16 interconvs", bf16_b8, interconv),
-             ("bf16 b8 exact again", bf16_b8, None)]
+             ("bf16 b8 bf16 interconvs", bf16_b8, interconv)]
     benches = {}
     for what, flags, env in order:
         out = benches[what] = _p17_bench(flags, env)
@@ -3751,6 +3906,226 @@ def phase18_async_checkpoints(tmp):
         f"{', over it' if wall > PHASE18_BUDGET_S else ''})")
 
 
+# phase 19: multi-device serving on one card. Its wall-time budget (s),
+# the replicas and bands (all on cuda:0 here), the limit of a replica's
+# rows against the batch-1 artifact when they are not bitwise equal and
+# of the bands over devices against the bands as one batch (mean EPE,
+# px), and (d)'s timed runs
+PHASE19_BUDGET_S = 150.0
+P19_DEVICES = 2
+P19_EPE = 1e-2
+P19_RUNS = 5
+
+
+def _p19_exports(ckpt, alone=False):
+    """Phase 19's exports of FlowNet2 f32 (exact warps) at 448x1024: the
+    2-replica artifact and the b2 one; ``alone``, also the b1 and the
+    spatial artifacts the full run takes from phases 12 and 15."""
+    n = P19_DEVICES
+    jobs = {"p19_dp": _f2_export_argv(ckpt, "--device", "cuda", "--batch",
+                                      str(n), "--data_parallel", str(n)),
+            "p19_b2": _f2_export_argv(ckpt, "--device", "cuda", "--batch",
+                                      str(n))}
+    if alone:
+        jobs["p19_b1"] = _f2_export_argv(ckpt, "--device", "cuda")
+        jobs["p19_sp"] = _f2_export_argv(
+            ckpt, "--device", "cuda", "--spatial_tiles", str(n),
+            "--spatial_overlap", str(min(SPATIAL_OVERLAPS)))
+    return jobs
+
+
+def _p19_replicas(paths, a, b):
+    """(a) the DP artifact's replicas on one card against the batch-1
+    artifact, row by row; returns the loaded DP model and its flow."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.tools import aot
+
+    n = P19_DEVICES
+    on_card = [torch.device("cuda", 0)] * n
+    t0 = time.perf_counter()
+    dp = aot.load_serving(paths["dp"], devices=["cuda:0"] * n)
+    one = aot.load_serving(paths["b1"])
+    load = time.perf_counter() - t0
+    if dp.devices != on_card:
+        raise AssertionError(f"phase 19 (a): replicas on {dp.devices}")
+    ck.reset_launch_counts()
+    flow = dp(a, b)
+    rows = [one(a[i:i + 1], b[i:i + 1]) for i in range(n)]
+    _check_counts(path_counts(), 2 * n, 0, "float32",
+                  "phase 19 (a) the replicas and the b1 artifact")
+    if flow.shape != (n, *SERVE_HW, 2) or flow.device != on_card[0]:
+        raise AssertionError(f"phase 19 (a): flow {flow.shape} on "
+                             f"{flow.device}")
+    same = [bool(torch.equal(flow[i:i + 1], row)) for i, row in
+            enumerate(rows)]
+    epe = [_epe(flow[i].cpu().numpy(), row[0].cpu().numpy())
+           for i, row in enumerate(rows)]
+    log(f"phase 19 (a): data_parallel {n} loaded on {['cuda:0'] * n} "
+        f"(both artifacts {load:.2f} s): {n} correlation launches per call; "
+        f"each replica's rows bitwise the b1 artifact's: {same} (mean EPE "
+        f"{epe} px)")
+    if not all(same):
+        worst = max(float((flow[i:i + 1] - row).abs().max())
+                    for i, row in enumerate(rows))
+        log(f"phase 19 (a): not bitwise: max |diff| {worst:.3e}; the two "
+            "artifacts hold graphs traced apart (batch 1 each), and cuDNN "
+            "may pick another algorithm for the same shape in another "
+            "graph; held to the limit instead")
+        if max(epe) > P19_EPE:
+            raise AssertionError(f"phase 19 (a): replicas {epe} px from the "
+                                 "b1 artifact")
+    return dp, flow
+
+
+def _p19_refusal(paths, a, b, flow):
+    """(b) the DP artifact on the default devices: refused on one card;
+    on several, one replica per card, bitwise (a)'s flow."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.tools import aot
+
+    n, k = P19_DEVICES, torch.cuda.device_count()
+    if k >= n:
+        spread = aot.load_serving(paths["dp"])
+        ck.reset_launch_counts()
+        want = [torch.device("cuda", i) for i in range(n)]
+        same = bool(torch.equal(spread(a, b), flow))
+        path_counts()
+        log(f"phase 19 (b): {k} cards: replicas on {spread.devices}, flow "
+            f"bitwise (a)'s: {same}")
+        if spread.devices != want or not same:
+            raise AssertionError("phase 19 (b): replicas misplaced or off")
+        return
+    want = f"artifact needs {n} devices (data_parallel); only {k} visible"
+    try:
+        aot.load_serving(paths["dp"])
+    except ValueError as e:
+        if str(e) != want:
+            raise AssertionError(f"phase 19 (b): refused with {e!r}, "
+                                 f"expected {want!r}") from None
+        log(f"phase 19 (b): load_serving with the default devices on {k} "
+            f"card: ValueError {e}")
+        return
+    raise AssertionError("phase 19 (b): a 2-replica artifact loaded on one "
+                         "card")
+
+
+def _p19_bands(paths, tree, a, b):
+    """(c) the bands over two devices (both cuda:0) against the bands as
+    one batch: the library and the spatial artifact."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.parallel import spatial
+    from flownet2_tf_tpu_torch.tools import aot
+
+    n, overlap = P19_DEVICES, min(SPATIAL_OVERLAPS)
+    on_card = ["cuda:0"] * n
+    a_np, b_np = (x[0].cpu().numpy() for x in (a, b))
+    ck.reset_launch_counts()
+    spread = spatial.infer_flow_spatial("2", tree, a_np, b_np, n_tiles=n,
+                                        overlap=overlap, devices=on_card)
+    _check_counts(path_counts(), n, 0, "float32",
+                  "phase 19 (c) infer_flow_spatial over 2 devices")
+    ck.reset_launch_counts()
+    batched = spatial.infer_flow_spatial("2", tree, a_np, b_np, n_tiles=n,
+                                         overlap=overlap,
+                                         devices=["cuda:0"])
+    _check_counts(path_counts(), 1, 0, "float32",
+                  "phase 19 (c) infer_flow_spatial as one batch")
+    bands = aot.load_serving(paths["sp"], devices=on_card)
+    whole = aot.load_serving(paths["sp"])
+    ck.reset_launch_counts()
+    served = bands(a[:1], b[:1])[0].cpu().numpy()
+    served_whole = whole(a[:1], b[:1])[0].cpu().numpy()
+    _check_counts(path_counts(), n + 1, 0, "float32",
+                  "phase 19 (c) the spatial artifact's band and one graphs")
+    lib_epe, art_epe = _epe(spread, batched), _epe(served, served_whole)
+    log(f"phase 19 (c): infer_flow_spatial, {n} bands (overlap {overlap}) "
+        f"on {on_card}: {n} correlation launches, mean EPE to the bands as "
+        f"one batch {lib_epe:.3e} px (limit {P19_EPE}); the spatial "
+        f"artifact's band graph on {on_card}: {n} launches per call, mean "
+        f"EPE to its one-graph load {art_epe:.3e} px (limit {P19_EPE}), to "
+        f"the library's bands {_epe(served, spread):.3e} px")
+    if not (lib_epe <= P19_EPE and art_epe <= P19_EPE):
+        raise AssertionError("phase 19 (c): the bands over devices are off")
+
+
+def _p19_timing(paths, dp, a, b, flow, smi):
+    """(d) served ms/pair of the replicas against the b2 artifact."""
+    import torch
+
+    from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel as ck
+    from flownet2_tf_tpu_torch.tools import aot
+
+    n = P19_DEVICES
+    b2 = aot.load_serving(paths["b2"])
+    ck.reset_launch_counts()
+    batch_flow = b2(a, b)
+    log(f"phase 19 (d): the b{n} artifact's flow against the replicas': "
+        f"bitwise {bool(torch.equal(batch_flow, flow))}, mean EPE "
+        f"{_epe(batch_flow.cpu().numpy(), flow.cpu().numpy()):.3e} px")
+    times = {}
+    for key, model in (("replicas", dp), ("b2", b2),
+                       ("replicas again", dp)):
+        times[key] = [t / n for t in cuda_time_ms(lambda: model(a, b),
+                                                  runs=P19_RUNS, warmup=2)]
+    # each set: 2 warm-ups and the timed runs; n launches per replicas'
+    # call, 1 per b2 call, and b2's first call above
+    calls = P19_RUNS + 2
+    _check_counts(path_counts(), 1 + calls * (n + 1 + n), 0, "float32",
+                  "phase 19 (d) the served calls")
+    parts = [f"{key} {statistics.median(t):.3f} ms/pair (min {min(t):.3f}, "
+             f"max {max(t):.3f})" for key, t in times.items()]
+    log(f"phase 19 (d): FlowNet2 f32 b{n} {SERVE_HW[0]}x{SERVE_HW[1]} "
+        f"served, {n} replicas on cuda:0 against the one-device b{n} "
+        f"artifact, in turns: {'; '.join(parts)} (CUDA events, median of "
+        f"{P19_RUNS}; {smi})")
+
+
+def phase19_multi_device(tmp, ckpt, tree, b1_path=None, spatial_path=None,
+                         ahead=None):
+    """Multi-device serving on the one card (see the module docstring).
+    ``b1_path``/``spatial_path``: phase 12's f32 b1 and phase 15's
+    spatial artifact of the same weights and settings, exported here when
+    None; ``ahead``: phase 12's return, holding this phase's exports."""
+    import torch
+
+    t0 = time.perf_counter()
+    n = P19_DEVICES
+    exports = _exported(tmp, _p19_exports(ckpt, alone=b1_path is None),
+                        ahead)
+    for key, (path, meta, wall) in exports.items():
+        log(f"phase 19: cli export --aot {key} (a child process): "
+            f"{wall:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB")
+    paths = {key[len("p19_"):]: path for key, (path, _, _) in exports.items()}
+    paths.setdefault("b1", b1_path)
+    paths.setdefault("sp", spatial_path)
+    meta = exports["p19_dp"][1]
+    if (meta["batch"], meta["data_parallel"]) != (n, n):
+        raise AssertionError(f"phase 19: metadata {meta}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    a, b = (torch.rand((n, *SERVE_HW, 3), generator=gen, device="cuda")
+            for _ in range(2))
+    before = json.loads(json.dumps(PATH_LAUNCHES))
+    dp, flow = _p19_replicas(paths, a, b)
+    _p19_refusal(paths, a, b, flow)
+    _p19_bands(paths, tree, a, b)
+    _p19_timing(paths, dp, a, b, flow, _smi())
+    log("phase 19: correlation launches on its paths " + json.dumps({
+        way: {k: c - before[way][k] for k, c in by_dtype.items()}
+        for way, by_dtype in PATH_LAUNCHES.items()}))
+    for key in ("dp", "b2"):
+        os.remove(paths[key])
+    wall = time.perf_counter() - t0
+    log(f"phase 19: wall time {wall:.1f} s (budget {PHASE19_BUDGET_S} s)")
+    if wall > PHASE19_BUDGET_S:
+        raise AssertionError("phase 19 overran its time budget")
+
+
 def main(argv=None):
     import torch
 
@@ -3825,10 +4200,24 @@ def main(argv=None):
         log(f"chip_smoke.py --phase18: passed in "
             f"{time.perf_counter() - t0:.1f} s")
         return 0
+    if argv == ["--phase19"]:
+        # phases 0 and 19 alone, its artifacts exported there; no result
+        # line
+        from flownet2_tf_tpu_torch.models.registry import get_model
+
+        phase0_device_and_build()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = os.path.join(tmp, "flownet2_seed0.npz")
+            tree = _jax_layout_npz(get_model("2").build("cpu"), ckpt)
+            phase19_multi_device(tmp, ckpt, tree)
+        _check_no_child_left()
+        log(f"chip_smoke.py --phase19: passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return 0
     if argv:
         raise SystemExit(f"chip_smoke.py: unknown arguments {argv} (none, "
-                         "--phase14, --phase15, --phase16, --phase17 or "
-                         "--phase18)")
+                         "--phase14, --phase15, --phase16, --phase17, "
+                         "--phase18 or --phase19)")
 
     phase0_device_and_build()
     worst, timings = phase1_kernel_vs_plain()
@@ -3859,13 +4248,20 @@ def main(argv=None):
         phase10_eval(tmp, ckpt)
         with tempfile.TemporaryDirectory() as disk_tmp:
             chairs, crc_py_mb_s = phase11_train_from_disk(disk_tmp)
-            phase12_serving(tmp, tree, ckpt, flow_cuda)
+            # phases 15, 17 and 19 export in phase 12's children
+            ahead = phase12_serving(tmp, tree, ckpt, flow_cuda, extra_exports={
+                **_p15_exports(ckpt), **_p17_exports(ckpt),
+                **_p19_exports(ckpt)})
             phase13_measurement(tmp, earlier)
             phase14_input_path(disk_tmp, chairs, ckpt, crc_py_mb_s)
-        phase15_data_parallel_and_spatial(tmp, ckpt, tree)
+        phase15_data_parallel_and_spatial(tmp, ckpt, tree, ahead)
         phase16_convert(tmp, tree, c_params)
-        phase17_serving_levers(tmp, tree, ckpt)
+        phase17_serving_levers(tmp, tree, ckpt, ahead)
         phase18_async_checkpoints(tmp)
+        phase19_multi_device(
+            tmp, ckpt, tree, b1_path=os.path.join(tmp, "f32_full.flowpak"),
+            spatial_path=os.path.join(tmp, "p15_spatial.flowpak"),
+            ahead=ahead)
 
     _check_no_child_left()
     log(f"chip_smoke.py: every phase passed in "
@@ -3908,4 +4304,13 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        # a phase that failed leaves no child behind
+        if CHILDREN:
+            from flownet2_tf_tpu_torch.utils import procs
+
+            for proc in CHILDREN:
+                if proc.returncode is None:
+                    procs.kill_group(proc)

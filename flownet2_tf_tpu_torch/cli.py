@@ -17,7 +17,8 @@ Port of the ten subcommands of ``flownet2_tf_tpu/cli.py``:
 * ``test``: single-pair inference, f32 by default or
   ``--compute_dtype bfloat16`` -> ``.flo`` / flow PNG, and the same JSON
   line on stdout; ``--spatial_tiles N`` runs the pair as N
-  halo-overlapped bands, one batch on the device.
+  halo-overlapped bands, spread over the visible devices of
+  ``--device``'s platform in groups (one batch on one card).
 * ``eval``: dataset AEE (Sintel, KITTI, FlyingChairs, FlyingThings3D,
   ChairsSDHom, TFRecords or synthetic), the JAX package's flags and JSON
   line; ``--save_outputs`` also writes each predicted flow.
@@ -31,12 +32,13 @@ Port of the ten subcommands of ``flownet2_tf_tpu/cli.py``:
   weights, or with ``--aot`` a ``.flowpak`` serving artifact
   (``tools/aot.py``; ``--shapes`` for a multi-shape bundle,
   ``--spatial_tiles`` for a single-pair graph over halo-overlapped
-  bands, ``--platforms cuda,cpu`` for one graph per platform in one
-  artifact), bf16 with half-res stack warps by default, as in the JAX
-  package.
+  bands, ``--data_parallel N`` for N replicas that split each batch,
+  ``--platforms cuda,cpu`` for one graph per platform in one artifact),
+  bf16 with half-res stack warps by default, as in the JAX package.
 * ``serve``: a ``.flowpak`` on an image pair, with no model code loaded,
   on ``--device`` (default: the card when the artifact has a CUDA
-  graph).
+  graph); a ``--data_parallel N`` artifact on the first N devices of
+  that platform (N replicas on the CPU; fewer cards than N raise).
 * ``bench``: frame pairs/s of a model forward (``tools/bench.py``): the
   median of gated samples, CUDA-event times on a card, one JSON line.
 * ``profile``: ``iters`` forwards under ``torch.profiler``
@@ -63,8 +65,6 @@ unchanged):
 
 The device is explicit (``--device``, default ``cuda``; ``cuda`` without a
 card raises; on ``cpu`` the bench and the profiler report CPU times).
-``export --data_parallel`` (replicas one per card) waits for a machine
-with at least two cards.
 """
 
 from __future__ import annotations
@@ -468,7 +468,6 @@ def cmd_export(args):
                              args.spatial_tiles, args.spatial_overlap)
         except ValueError as e:
             raise SystemExit(f"export --aot: {e}") from None
-        aot.refuse_unported(args.data_parallel)
     tree = warmstart.load_params_tree(args.ckpt)
     if args.aot:
         if shapes is not None:
@@ -630,7 +629,8 @@ def build_parser():
                    choices=["float32", "bfloat16"])
     p.add_argument("--spatial_tiles", type=int, default=0,
                    help=">1: halo-banded spatially tiled inference, the "
-                        "bands run as one batch on the device "
+                        "bands spread over the visible devices of "
+                        "--device's platform, one batch on one card "
                         "(parallel/spatial.py)")
     p.add_argument("--spatial_overlap", type=int, default=128,
                    help="halo rows per band side (multiple of 32)")
@@ -767,13 +767,17 @@ def build_parser():
              "alone. cuda needs a card here",
     )
     p.add_argument("--data_parallel", type=int, default=0,
-                   help="N > 1 places N replicas one per card: waits for a "
-                        "machine with at least two cards (ROADMAP Queue 1 "
-                        "item 16)")
+                   help="N > 1 (N dividing --batch): one replica's graph "
+                        "(batch / N) that the loader runs on N devices, "
+                        "each call's batch split over them "
+                        "(load_serving; serve: the first N devices of the "
+                        "platform)")
     p.add_argument("--spatial_tiles", type=int, default=0,
                    help="N > 1 (batch 1): freeze halo-banded spatial tiling "
                         "into the graph, the N bands run as one batch on "
-                        "the export device (parallel/spatial.py)")
+                        "the export device, and add one band's graph that "
+                        "load_serving(devices=) runs one band per device "
+                        "(parallel/spatial.py)")
     p.add_argument("--spatial_overlap", type=int, default=128,
                    help="halo rows per band side (multiple of 32)")
     _add_device_arg(p)

@@ -1,5 +1,6 @@
-"""The process group of data-parallel training, and device staging of
-host batches (``DevicePrefetcher``).
+"""The process group of data-parallel training, device staging of host
+batches (``DevicePrefetcher``), and the device lists of multi-device
+serving (``serving_devices``, ``scatter_gather``).
 
 Port of ``flownet2_tf_tpu/parallel/mesh.py``. The JAX package runs one
 program over a device mesh; the port runs one process per card, joined
@@ -20,9 +21,13 @@ trainer wraps its model in ``DistributedDataParallel``
   batch is the local batch times the process count;
 * ``make_mesh``, ``batch_sharding``, ``replicated_sharding`` and
   ``replicate`` shard one process's arrays over several devices; one
-  process per card has nothing to shard, so they have no counterpart.
-  ``mesh_for_batch``'s rule (the largest device count that divides the
-  batch) stays as a plain function of counts.
+  process per card has nothing to shard in training, so they have no
+  counterpart there. ``mesh_for_batch``'s rule (the largest device count
+  that divides the batch) stays as a plain function of counts. Serving
+  in one process does span devices: :func:`serving_devices` is the
+  explicit device list of an artifact's replicas or of spatial bands
+  (``jax.devices()[:n]``), and :func:`visible_devices` a platform's
+  whole list (``jax.devices()``).
 
 Parity note on the data: the JAX package's ``cli train`` does not shard
 the data stream per process, and neither does the port: every process's
@@ -46,6 +51,7 @@ plain tensors.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -159,6 +165,80 @@ def mesh_for_batch(batch_size: int, n_devices: int) -> int:
     while n > 1 and batch_size % n:
         n -= 1
     return n
+
+
+def visible_devices(platform) -> list:
+    """Every device of ``platform`` this process sees: ``cuda:0`` ...
+    ``cuda:{k-1}``, or the one CPU device (the JAX package's
+    ``jax.devices()``)."""
+    if torch.device(platform).type == "cpu":
+        return [torch.device("cpu")]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def serving_devices(platform, n: int, devices=None, *,
+                    kind: str = "data_parallel", visible=None) -> list:
+    """The ``n`` devices that serve the ``n`` replicas (or bands) of an
+    artifact, the counterpart of the JAX package's ``jax.devices()[:n]``.
+
+    ``devices``: an explicit list of ``n`` devices of ``platform``, taken
+    as given (repeats allowed: several replicas on one card). Else
+    ``cuda:0`` ... ``cuda:{n-1}``, or ``n`` replicas on the CPU (a torch
+    process has one CPU device, as the JAX package's host platform is one
+    device split into virtual ones in its tests). ``kind`` names what
+    needs them in the refusal; ``visible`` is the count of cards, by
+    default ``torch.cuda.device_count()``. Raises ValueError when fewer
+    cards are visible than asked for: no fallback to the CPU or to fewer
+    replicas."""
+    platform = torch.device(platform).type
+    n = int(n)
+    if platform == "cuda":
+        k = torch.cuda.device_count() if visible is None else int(visible)
+    else:
+        k = n
+    if devices is None:
+        if platform == "cuda" and k < n:
+            raise ValueError(f"artifact needs {n} devices ({kind}); only {k} "
+                             "visible")
+        return [torch.device(platform, i) if platform == "cuda"
+                else torch.device("cpu") for i in range(n)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != n:
+        raise ValueError(f"artifact needs {n} devices ({kind}); got a list "
+                         f"of {len(devices)}: {[str(d) for d in devices]}")
+    other = [str(d) for d in devices if d.type != platform]
+    if other:
+        raise ValueError(f"devices {other} are not on the platform "
+                         f"{platform} of this graph")
+    if platform == "cuda":
+        devices = [d if d.index is not None else torch.device("cuda", 0)
+                   for d in devices]
+        absent = [str(d) for d in devices if d.index >= k]
+        if absent:
+            raise ValueError(f"devices {absent} asked for ({kind}); only {k} "
+                             "visible")
+    return devices
+
+
+def scatter_gather(fns, devices, inputs, out_device):
+    """``fns[i]`` on the i-th of ``len(devices)`` contiguous shards of
+    ``inputs`` (tensors split along the batch), each shard put on
+    ``devices[i]``; every call is enqueued before any result is read
+    (no host sync between them). Returns the outputs concatenated in
+    order on ``out_device``: the JAX package's batch-sharded call over a
+    mesh, with an explicit list of devices."""
+    n = len(devices)
+    per = inputs[0].shape[0] // n
+    shards = [[x[i * per:(i + 1) * per].to(d, non_blocking=True)
+               for x in inputs] for i, d in enumerate(devices)]
+    outs = []
+    for fn, d, shard in zip(fns, devices, shards):
+        with (torch.cuda.device(d) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            outs.append(fn(*shard))
+    if n == 1:
+        return outs[0].to(out_device)
+    return torch.cat([o.to(out_device) for o in outs])
 
 
 def shard_batch(batch, device):

@@ -1,22 +1,18 @@
-"""Spatial tiling of inference: halo-overlapped bands along H.
+"""Spatial tiling of inference: halo-overlapped bands along H, spread over
+devices.
 
 Port of ``flownet2_tf_tpu/parallel/spatial.py``. The frame is cut into
-``n_tiles`` horizontal bands of ``core`` rows (a multiple of 64), each
-extended by ``overlap`` halo rows on both sides; each band runs through
-the network and only its core rows are kept. Windows are interior-
-clamped: a band at a frame edge shifts inward and fills its halo with
-real image rows, so the tiled flow converges to the untiled one as the
-overlap grows (n=2 at overlap H/4 is exact). Only the bottom pad to a
-multiple of 64 is synthetic (edge rows).
+``n_tiles`` horizontal bands (``parallel/tiles.py``: ``extract_tiles``,
+``stitch_tiles``, the row copies, kept apart from the model code); each
+band runs through the network and only its core rows are kept. The tiled
+flow converges to the untiled one as the overlap grows (n=2 at overlap
+H/4 is exact).
 
-The JAX package places one band per device of its mesh. The port runs
-all N bands as one batch on one device: with one card per machine there
-is no second device to place a band on, as on the JAX package's
-one-device mesh. One band per card waits for a machine with several
-cards (ROADMAP Queue 1 item 16).
-
-``extract_tiles`` and ``stitch_tiles`` are pure row copies, traceable by
-``torch.export`` (``tools/aot.py`` freezes them into a serving graph).
+The bands are spread over a list of devices as the JAX package spreads
+them over its mesh: ``mesh_for_batch(n_tiles, len(devices))`` devices
+take the bands in contiguous groups, each device its own copy of the
+model. One device (the default on a machine with one card) runs all the
+bands as one batch. Several entries of the list may name one device.
 """
 
 from __future__ import annotations
@@ -25,54 +21,22 @@ import numpy as np
 import torch
 
 from flownet2_tf_tpu_torch.models.common import compute_dtype_of
+from flownet2_tf_tpu_torch.parallel.mesh import (
+    mesh_for_batch,
+    scatter_gather,
+    serving_devices,
+    visible_devices,
+)
+from flownet2_tf_tpu_torch.parallel.tiles import (  # noqa: F401
+    _tile_plan,
+    band_height,
+    extract_tiles,
+    stitch_tiles,
+)
 from flownet2_tf_tpu_torch.training.infer import (
     inference_model,
     resolve_device,
 )
-
-
-def _tile_plan(height: int, n_tiles: int, overlap: int, multiple: int = 64):
-    """-> (core, padded_h): uniform band height (multiple of 64) and the
-    padded image height the bands tile exactly."""
-    if overlap % 32 != 0:
-        raise ValueError("overlap must be a multiple of 32")
-    core = -(-height // n_tiles)
-    core = -(-core // multiple) * multiple
-    return core, core * n_tiles
-
-
-def extract_tiles(image, n_tiles: int, overlap: int):
-    """(1, H, W, C) -> (n_tiles, core + 2*overlap, W, C) with
-    interior-clamped halo windows; returns (tiles, core, offsets, H).
-
-    Band i's core rows are [i*core, (i+1)*core); its window is the core
-    extended by ``overlap`` on both sides, then shifted inward so it stays
-    inside the (bottom edge-padded) frame; a window taller than the
-    padded frame is the whole frame. ``offsets[i]`` is the core's row
-    offset inside band i's window (for :func:`stitch_tiles`)."""
-    _, h, _, _ = image.shape
-    core, padded_h = _tile_plan(h, n_tiles, overlap)
-    tile_h = core + 2 * overlap
-    if padded_h > h:
-        rows = torch.arange(padded_h, device=image.device).clamp(max=h - 1)
-        image = image[:, rows]
-    if tile_h >= padded_h:
-        starts = [0] * n_tiles
-        tile_h = padded_h
-    else:
-        starts = [min(max(i * core - overlap, 0), padded_h - tile_h)
-                  for i in range(n_tiles)]
-    tiles = torch.stack([image[0, s:s + tile_h] for s in starts])
-    offsets = [i * core - s for i, s in enumerate(starts)]
-    return tiles, core, offsets, h
-
-
-def stitch_tiles(tile_out, core: int, offsets, height: int):
-    """(n_tiles, tile_h, W, C) -> (1, H, W, C), keeping band cores at
-    their per-band ``offsets`` (from :func:`extract_tiles`)."""
-    kept = torch.cat([tile_out[i, off:off + core]
-                      for i, off in enumerate(offsets)])
-    return kept[None, :height]
 
 
 def forward_tiles(model, tiles_a, tiles_b, compute_dtype):
@@ -82,22 +46,44 @@ def forward_tiles(model, tiles_a, tiles_b, compute_dtype):
                  compute_dtype)["flow"]
 
 
+def band_devices(n_tiles, device="cuda", devices=None) -> list:
+    """The devices the ``n_tiles`` bands run on, one group of contiguous
+    bands each: the first ``mesh_for_batch(n_tiles, len(devices))`` of
+    ``devices`` (their platform's; several entries may name one device),
+    all of them when ``n_tiles`` is None. ``devices=None`` means every
+    visible device of ``device``'s platform, or ``device`` alone when it
+    names an index."""
+    if devices is None:
+        device = resolve_device(device)
+        devices = ([device] if device.index is not None
+                   else visible_devices(device.type))
+    platform = resolve_device(torch.device(devices[0]).type).type
+    devices = serving_devices(platform, len(devices), devices,
+                              kind="spatial_tiles")
+    if n_tiles is None:
+        return devices
+    return devices[:mesh_for_batch(n_tiles, len(devices))]
+
+
 def infer_flow_spatial(model_name, params, image_a, image_b, n_tiles=None,
                        overlap: int = 128, device="cuda",
-                       compute_dtype="float32", warp_res=1, **knobs):
-    """Tiled flow inference: the bands run as one batch on ``device``.
+                       compute_dtype="float32", warp_res=1, devices=None,
+                       **knobs):
+    """Tiled flow inference: the bands spread over devices in groups.
 
     ``image_a/b``: (H, W, 3) float arrays in [0, 1]; W must be %64 (pad
     with ``training.infer.pad_to_multiple`` first if needed). ``params``:
-    a JAX-layout tree. ``n_tiles=None`` means one band per device, which
-    is one here. ``knobs``: ``training/infer.py::load_model``'s other
-    knobs. Returns the (H, W, 2) f32 flow as a numpy array.
+    a JAX-layout tree. ``devices``: the device list (:func:`band_devices`;
+    default every visible device of ``device``'s platform); ``n_tiles=None``
+    means one band per device. ``knobs``: ``training/infer.py::load_model``'s
+    other knobs. Returns the (H, W, 2) f32 flow as a numpy array.
     """
+    devices = band_devices(n_tiles, device, devices)
     if n_tiles is None:
-        n_tiles = 1
+        n_tiles = len(devices)
     cd = compute_dtype_of(compute_dtype)
-    device = resolve_device(device)
-    a, b = (torch.as_tensor(np.asarray(x, np.float32), device=device)[None]
+    a, b = (torch.as_tensor(np.asarray(x, np.float32),
+                            device=devices[0])[None]
             for x in (image_a, image_b))
     if a.shape[2] % 64 != 0:
         # bands are cut along H; W passes through the six stride-2 stages
@@ -106,11 +92,18 @@ def infer_flow_spatial(model_name, params, image_a, image_b, n_tiles=None,
             f"infer_flow_spatial requires W % 64 == 0, got W={a.shape[2]}; "
             "edge-pad with training.infer.pad_to_multiple and crop the "
             "flow back")
-    model = inference_model(model_name, params, device, cd, warp_res,
-                            **knobs)
+    # one model copy per device, shared by the entries that repeat it
+    models = {}
+    for d in devices:
+        if d not in models:
+            models[d] = inference_model(model_name, params, d, cd, warp_res,
+                                        **knobs)
     with torch.inference_mode():
         tiles_a, core, offsets, h = extract_tiles(a, n_tiles, overlap)
         tiles_b, _, _, _ = extract_tiles(b, n_tiles, overlap)
-        flow_tiles = forward_tiles(model, tiles_a, tiles_b, cd)
+        fns = [lambda ta, tb, m=models[d]: forward_tiles(m, ta, tb, cd)
+               for d in devices]
+        flow_tiles = scatter_gather(fns, devices, (tiles_a, tiles_b),
+                                    devices[0])
         flow = stitch_tiles(flow_tiles, core, offsets, h)
     return flow[0].cpu().numpy()

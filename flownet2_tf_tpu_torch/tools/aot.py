@@ -50,10 +50,26 @@ kernel, the CPU graph the op's plain CPU version.
 Exports are shape-specialized: H and W multiples of 64, one static
 (batch, H, W) per graph; a bundle holds several graphs and one copy of
 the weights. ``spatial_tiles=N`` freezes halo-banded tiling into a
-single-pair graph (``parallel/spatial.py``: ``extract_tiles``, the model
-on the N bands as one batch, ``stitch_tiles``), run on the export device.
-Data-parallel exports (replicas one per card) wait for a machine with at
-least two cards.
+single-pair graph (``parallel/tiles.py``: ``extract_tiles``, the model
+on the N bands as one batch, ``stitch_tiles``), run on the export device,
+and also writes ``band[-{platform}].pt2``, the model on one band (batch
+1, the band's padded rows), which :func:`load_serving` runs one band per
+device when given ``devices``, as the JAX package's artifact places one
+band per chip.
+
+Several devices: where the JAX package shards one program over a mesh,
+the port runs one graph per device. ``data_parallel=N`` traces the
+per-replica graph (batch ``batch // N``) on the export device;
+:func:`load_serving` deserializes it once per device, moves it there
+(``torch.export.passes.move_to_device_pass``: the devices baked into its
+nodes, trap C10), puts a copy of the weights on each device, and every
+call splits the batch into N contiguous shards, enqueues each replica's
+forward before it reads any result back, and gathers the flows in order
+(``parallel/mesh.py::scatter_gather``). The devices are
+``parallel/mesh.py::serving_devices``: ``cuda:0`` ... ``cuda:{N-1}``
+(fewer visible cards raise), N replicas on the CPU, or an explicit list
+(repeats allowed). Replicas that share a device share its graph and
+weights. Nothing model-side is traced again at load.
 """
 
 from __future__ import annotations
@@ -70,6 +86,11 @@ from torch import nn
 
 # the op registration the graphs call; imports no model code
 from flownet2_tf_tpu_torch.ops.cuda import correlation_kernel  # noqa: F401
+from flownet2_tf_tpu_torch.parallel import tiles
+from flownet2_tf_tpu_torch.parallel.mesh import (
+    scatter_gather,
+    serving_devices,
+)
 from flownet2_tf_tpu_torch.utils.precision import f32_policy
 
 FORMAT_VERSION = 1
@@ -101,26 +122,22 @@ def warp_res_of(warp_mode: str) -> int:
 
 def check_tiling(batch=1, data_parallel=0, spatial_tiles=0,
                  spatial_overlap=128):
-    """ValueError for a spatial-tile export the JAX package refuses too:
-    with ``data_parallel``, at a batch other than 1, or with an overlap
-    that is not a multiple of 32."""
-    if int(data_parallel or 0) > 1 and int(spatial_tiles or 0) > 1:
+    """ValueError for a multi-device export the JAX package refuses too:
+    ``data_parallel`` with ``spatial_tiles``, ``data_parallel`` N at a
+    batch that N does not divide, ``spatial_tiles`` at a batch other than
+    1 or with an overlap that is not a multiple of 32."""
+    dp = int(data_parallel or 0)
+    if dp > 1 and int(spatial_tiles or 0) > 1:
         raise ValueError("data_parallel and spatial_tiles are exclusive")
+    if dp > 1 and batch % dp:
+        raise ValueError(
+            f"data_parallel={dp} needs batch % {dp} == 0: got {batch}")
     if int(spatial_tiles or 0) > 1:
         if batch != 1:
             raise ValueError("spatial_tiles serving is single-pair "
                              f"(batch=1); got batch={batch}")
         if int(spatial_overlap) % 32:
             raise ValueError("overlap must be a multiple of 32")
-
-
-def refuse_unported(data_parallel=0):
-    """SystemExit for the export option the port does not have yet."""
-    if data_parallel and int(data_parallel) > 1:
-        raise SystemExit(
-            f"export --data_parallel {data_parallel} is not ported yet: "
-            "placing the replicas one per card waits for a machine with at "
-            "least two cards (ROADMAP Queue 1 item 16)")
 
 
 def _check_shape(height, width):
@@ -143,16 +160,12 @@ class _SpatialServingForward(nn.Module):
         self.n_tiles, self.overlap = int(n_tiles), int(overlap)
 
     def forward(self, params, image_a, image_b):
-        from flownet2_tf_tpu_torch.parallel.spatial import (
-            extract_tiles,
-            stitch_tiles,
-        )
-
-        tiles_a, core, offsets, h = extract_tiles(image_a, self.n_tiles,
-                                                  self.overlap)
-        tiles_b, _, _, _ = extract_tiles(image_b, self.n_tiles, self.overlap)
-        return stitch_tiles(self.inner(params, tiles_a, tiles_b), core,
-                            offsets, h)
+        tiles_a, core, offsets, h = tiles.extract_tiles(
+            image_a, self.n_tiles, self.overlap)
+        tiles_b, _, _, _ = tiles.extract_tiles(image_b, self.n_tiles,
+                                               self.overlap)
+        return tiles.stitch_tiles(self.inner(params, tiles_a, tiles_b),
+                                  core, offsets, h)
 
 
 class _ServingForward(nn.Module):
@@ -351,24 +364,29 @@ def export_serving(model_name, params, height, width, out_path, batch=1,
     interconvs under the bf16 policy; ``meta.json`` records both.
     ``platforms``: None traces one graph on ``device``; a list of
     ``cuda``/``cpu`` traces one graph per platform into one artifact
-    (``_export_devices``). ``spatial_tiles=N`` (N > 1, batch 1, exclusive
-    with ``data_parallel``) freezes halo-banded tiling into the graph,
-    the N bands run as one batch on the export device (the JAX package
-    places one per chip). ``data_parallel`` > 1 is not ported and raises
-    ``SystemExit``. Returns the metadata.
+    (``_export_devices``). ``data_parallel=N`` (N > 1, N dividing
+    ``batch``) traces the forward of one replica, batch ``batch // N``,
+    which :func:`load_serving` runs on N devices. ``spatial_tiles=N``
+    (N > 1, batch 1, exclusive with ``data_parallel``) freezes
+    halo-banded tiling into the graph, the N bands run as one batch on
+    the export device, and adds the graph of one band, which
+    :func:`load_serving` runs one band per device (the JAX package places
+    one per chip). Returns the metadata.
     """
     check_tiling(batch, data_parallel, spatial_tiles, spatial_overlap)
-    refuse_unported(data_parallel)
     _check_shape(height, width)
     dp, sp = int(data_parallel or 0), int(spatial_tiles or 0)
     devices = _export_devices(device, platforms)
-    wrap = None
+    entries = [("exported", (height, width, batch // max(dp, 1)), None)]
     if sp > 1:
         def wrap(forward):
             return _SpatialServingForward(forward, sp, spatial_overlap)
+
+        entries = [("exported", (height, width, batch), wrap),
+                   ("band", (tiles.band_height(height, sp, spatial_overlap),
+                             width, 1), None)]
     graphs, (params_bytes, bf16_leaves) = _export_graphs(
-        model_name, params, compute_dtype, warp_mode, devices,
-        [("exported", (height, width, batch), wrap)],
+        model_name, params, compute_dtype, warp_mode, devices, entries,
         fusion_res=fusion_res, bf16_interconv=bf16_interconv)
     fusion_k, interconv_meta = _knob_meta(model_name, compute_dtype,
                                           fusion_res, bf16_interconv)
@@ -438,16 +456,40 @@ class ServingModel:
     """A loaded .flowpak: call with (N, H, W, 3) float32 pairs in [0, 1].
 
     numpy inputs give a numpy flow; torch tensors give a tensor on the
-    artifact's device (no host copy). Imports no model code: the graph
-    lives in the artifact.
+    artifact's device (no host copy), the first device of a
+    multi-device one. Imports no model code: the graph lives in the
+    artifact.
+
+    ``replicas``: [(graph, weights, device)] of a data-parallel artifact
+    (one per replica, each call's batch split over them in order) or of
+    a spatial artifact's band graph (one band per device); None runs
+    ``program`` on ``device``.
     """
 
-    def __init__(self, program, params, meta, device=None):
+    def __init__(self, program, params, meta, device=None, replicas=None):
         self._program = program
         self._params = params
         self.meta = meta
         # the device whose graph this is (one of meta["platforms"])
         self.device = torch.device(device or meta["platforms"][0])
+        self._replicas = replicas
+        self.devices = ([d for _, _, d in replicas] if replicas
+                        else [self.device])
+
+    def _forward(self, a, b, out_device):
+        if not self._replicas:
+            return self._program(self._params, a, b)
+        fns = [lambda x, y, g=g, w=w: g(w, x, y)
+               for g, w, _ in self._replicas]
+        if self.meta.get("data_parallel", 0) > 1:
+            return scatter_gather(fns, self.devices, (a, b), out_device)
+        # one band per device, cut and stitched where the pair lies
+        n, overlap = self.meta["spatial_tiles"], self.meta["spatial_overlap"]
+        tiles_a, core, offsets, h = tiles.extract_tiles(a, n, overlap)
+        tiles_b, _, _, _ = tiles.extract_tiles(b, n, overlap)
+        return tiles.stitch_tiles(
+            scatter_gather(fns, self.devices, (tiles_a, tiles_b),
+                           out_device), core, offsets, h)
 
     def __call__(self, image_a, image_b):
         expect = (self.meta["batch"], self.meta["height"],
@@ -460,16 +502,20 @@ class ServingModel:
                 "design)."
             )
         as_numpy = not isinstance(image_a, torch.Tensor)
+        # several devices: the pair stays where it is (numpy on the host)
+        # and its shards go to the replicas
+        home = self.device if not self._replicas else (
+            torch.device("cpu") if as_numpy else None)
         a, b = (torch.as_tensor(
                     np.ascontiguousarray(x, np.float32) if as_numpy else x,
-                    dtype=torch.float32, device=self.device)
+                    dtype=torch.float32, device=home)
                 for x in (image_a, image_b))
         # f32_policy's flags follow the export's policy (process state,
         # not graph nodes)
         cd = (torch.bfloat16 if self.meta["compute_dtype"] == "bfloat16"
               else torch.float32)
         with torch.no_grad(), f32_policy(cd):
-            flow = self._program(self._params, a, b)
+            flow = self._forward(a, b, home if as_numpy else self.devices[0])
         return flow.cpu().numpy() if as_numpy else flow
 
     def infer_pair(self, image_a, image_b):
@@ -477,9 +523,11 @@ class ServingModel:
         the artifact resolution: inputs are edge-padded up on the host
         and the flow cropped back. Larger inputs raise.
 
-        On a batch>1 artifact the pair is broadcast to the full batch
-        (batch-1 redundant forwards per call); the first such call
-        warns. Batch callers should call the model with full batches.
+        On a batch>1 artifact the pair is broadcast to the full batch;
+        where that costs redundant forwards on one device (more than one
+        pair per replica), the first such call warns. A data-parallel
+        artifact with one pair per replica stays silent, as in the JAX
+        package. Batch callers should call the model with full batches.
         """
         a = np.asarray(image_a, np.float32)
         b = np.asarray(image_b, np.float32)
@@ -499,7 +547,8 @@ class ServingModel:
         batch = self.meta["batch"]
         if batch == 1:
             return self(a[None], b[None])[0, :h, :w]
-        if not getattr(self, "_warned_broadcast", False):
+        per_replica = batch // max(self.meta.get("data_parallel", 0), 1)
+        if per_replica > 1 and not getattr(self, "_warned_broadcast", False):
             self._warned_broadcast = True
             warnings.warn(
                 f"infer_pair on a batch={batch} artifact broadcasts the "
@@ -557,24 +606,50 @@ class BundleServingModel:
         return self._models[(b, eh, ew)].infer_pair(image_a, image_b)
 
 
-def _load_params(npz_bytes, bf16_leaves, layouts, device):
-    """params.npz -> {graph input name: tensor on ``device``} in the
-    graph's layout (bf16 leaves from their bit patterns)."""
+def _host_params(npz_bytes, bf16_leaves, layouts):
+    """params.npz -> {graph input name: CPU tensor} in the graph's
+    layout (bf16 leaves from their bit patterns)."""
     bf16 = set(bf16_leaves)
     params = {}
     with np.load(io.BytesIO(npz_bytes)) as npz:
         for key in npz.files:
             arr = np.ascontiguousarray(_FROM_JAX[layouts[key]](npz[key]))
-            t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-                 if key in bf16 else torch.from_numpy(arr))
-            params[key.replace("/", ".")] = t.to(device)
+            params[key.replace("/", ".")] = (
+                torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+                if key in bf16 else torch.from_numpy(arr))
     return params
 
 
-def _load_program(z, name):
+def graph_device(program):
+    """The device a ``torch.export`` program was traced on: that of its
+    first tensor input."""
+    for node in program.graph.nodes:
+        val = node.meta.get("val")
+        if node.op == "placeholder" and isinstance(val, torch.Tensor):
+            return val.device
+    raise ValueError("the program has no tensor input")
+
+
+def move_graph(program, device):
+    """``program`` moved in place from the device it was traced on to
+    ``device`` (``torch.export.passes.move_to_device_pass``: the devices
+    baked into its nodes, such as ``arange``'s and ``zeros``', and their
+    metadata); returns it."""
+    from torch.export.passes import move_to_device_pass
+
+    source, device = graph_device(program), torch.device(device)
+    if source == device:
+        return program
+    return move_to_device_pass(program, {str(source): str(device)})
+
+
+def _load_program(data, device=None):
+    """(module, layouts) of a ``.pt2``'s bytes, moved to ``device`` when
+    given."""
     layouts = {LAYOUTS_FILE: ""}
-    program = torch.export.load(io.BytesIO(z.read(name)),
-                                extra_files=layouts)
+    program = torch.export.load(io.BytesIO(data), extra_files=layouts)
+    if device is not None:
+        program = move_graph(program, device)
     return program.module(), json.loads(layouts[LAYOUTS_FILE])
 
 
@@ -603,12 +678,41 @@ def _serving_device(path, platforms, device):
     return device
 
 
-def load_serving(path, device=None):
+def _replica_devices(path, meta, device, devices):
+    """(graph stem, devices) of a multi-device load, or None for one
+    device: a data-parallel artifact's replicas (``devices``, else the
+    default devices of ``device``'s platform), or a spatial artifact's
+    bands when ``devices`` is given."""
+    dp, sp = meta.get("data_parallel", 0), meta.get("spatial_tiles", 0)
+    if dp > 1:
+        return "exported", serving_devices(device.type, dp, devices,
+                                           kind="data_parallel")
+    if devices is None:
+        return None
+    if sp > 1:
+        return "band", serving_devices(device.type, sp, devices,
+                                       kind="spatial_tiles")
+    raise ValueError(
+        f"{path}: devices= serves the replicas of a data_parallel artifact "
+        "or the bands of a spatial_tiles one; this artifact runs on one "
+        "device (pass device=)")
+
+
+def load_serving(path, device=None, devices=None):
     """Load a .flowpak written by :func:`export_serving` (single shape) or
     :func:`export_serving_bundle` (shape-dispatching bundle), reading only
     the graphs of ``device``'s platform (default: ``cuda`` when the
-    artifact has it). A CUDA graph needs a card here: there is no
-    fallback to another platform's graph."""
+    artifact has it; the platform of ``devices`` when given). A CUDA
+    graph needs a card here: there is no fallback to another platform's
+    graph.
+
+    A ``data_parallel`` N artifact serves N replicas on ``devices`` (N of
+    them, repeats allowed), by default on the first N devices of the
+    platform (``parallel/mesh.py::serving_devices``: fewer cards raise).
+    A ``spatial_tiles`` N artifact runs its one graph on ``device``, or
+    with ``devices`` (N of them) one band per device."""
+    if device is None and devices is not None:
+        device = devices[0]
     with zipfile.ZipFile(os.fspath(path)) as z:
         meta = json.loads(z.read("meta.json"))
         version = meta.get("format_version")
@@ -621,8 +725,13 @@ def load_serving(path, device=None):
                 "torch port loads its own exports (exported*.pt2)")
         platforms = meta["platforms"]
         device = _serving_device(path, platforms, device)
+        # a bundle's entries are single-device, as in the JAX package
+        replicas = _replica_devices(
+            path, meta if version == FORMAT_VERSION else {}, device, devices)
         stems = (["exported"] if version == FORMAT_VERSION else
                  [f"exported_{i}" for i in range(len(meta["entries"]))])
+        if replicas is not None:
+            stems = [replicas[0]]
         names = [_graph_name(s, device.type, platforms) for s in stems]
         missing = [n for n in names if n not in held]
         if missing:
@@ -630,9 +739,23 @@ def load_serving(path, device=None):
                 f"{path}: meta.json names the platforms {platforms}, but "
                 f"the artifact lacks {missing}; it holds the graphs "
                 f"{sorted(n for n in held if n.endswith('.pt2'))}")
-        loaded = [_load_program(z, name) for name in names]
-        params = _load_params(z.read("params.npz"), meta["bf16_leaves"],
-                              loaded[0][1], device)
+        graphs = [z.read(name) for name in names]
+        npz_bytes = z.read("params.npz")
+    if replicas is not None:
+        # one graph and one copy of the weights per distinct device
+        placed, host = {}, None
+        for d in replicas[1]:
+            if d not in placed:
+                program, layouts = _load_program(graphs[0], d)
+                if host is None:
+                    host = _host_params(npz_bytes, meta["bf16_leaves"],
+                                        layouts)
+                placed[d] = (program, {k: t.to(d) for k, t in host.items()})
+        return ServingModel(None, None, meta, replicas[1][0],
+                            [(*placed[d], d) for d in replicas[1]])
+    loaded = [_load_program(data) for data in graphs]
+    params = {k: t.to(device) for k, t in _host_params(
+        npz_bytes, meta["bf16_leaves"], loaded[0][1]).items()}
     if version == FORMAT_VERSION:
         return ServingModel(loaded[0][0], params, meta, device)
     models = {}

@@ -133,8 +133,9 @@ def test_pair(model_name, checkpoint, input_a_path, input_b_path, out_dir,
     (H, W, 2) flow. ``knobs``: :func:`load_model`'s other knobs.
 
     ``spatial_tiles`` > 1 runs halo-banded tiled inference
-    (``parallel/spatial.py``, the bands as one batch on ``device``): the
-    pair is edge-padded to %64 on the host and the flow cropped back."""
+    (``parallel/spatial.py``, the bands spread over the visible devices of
+    ``device``'s platform, one batch on one device): the pair is
+    edge-padded to %64 on the host and the flow cropped back."""
     compute_dtype_of(compute_dtype)
     device = resolve_device(device)
     params = load_params_tree(checkpoint)

@@ -9,6 +9,7 @@ import contextlib
 import io
 import json
 import re
+import shutil
 import zipfile
 
 import numpy as np
@@ -28,6 +29,14 @@ from flownet2_tf_tpu_torch.models import registry  # noqa: E402
 from flownet2_tf_tpu_torch.models.registry import get_model  # noqa: E402
 from flownet2_tf_tpu_torch.tools import aot, bench, benchlib  # noqa: E402
 from flownet2_tf_tpu_torch.training import loop, warmstart  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Some tests here write FlowNet weights of about 150 MB: delete what
+    each test wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _last_json(capsys):

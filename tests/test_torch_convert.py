@@ -36,6 +36,15 @@ SAMPLES = os.path.join(REPO, "data", "samples")
 sys.path.insert(0, os.path.join(REPO, "tests"))
 import _torch_tf1_writer as writer  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Tests here write bundles and ``.npz`` files: delete what each test
+    wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 # the format, as constants of this file: a reader and a writer that
 # shared a misreading would still disagree with these
 FOOTER_LEN = 48

@@ -2,6 +2,7 @@
 torch port's modules, on the CPU."""
 
 import functools
+import shutil
 
 import numpy as np
 import pytest
@@ -19,6 +20,14 @@ from flownet2_tf_tpu.training import warmstart as jws  # noqa: E402
 from flownet2_tf_tpu_torch.models import common  # noqa: E402
 from flownet2_tf_tpu_torch.models.registry import get_model  # noqa: E402
 from flownet2_tf_tpu_torch.training import warmstart  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _drop_test_files(tmp_path):
+    """Some tests here write FlowNet weights of about 150 MB: delete what
+    each test wrote when it ends."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def jax_shapes(name):

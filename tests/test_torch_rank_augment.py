@@ -81,7 +81,18 @@ def _load(path):
 def _run_ranks(tmp_path, world):
     """``world`` ranks of the child in mode ``augment``, each with the
     same local batch of ``LOCAL_BATCH``; returns per rank its augmented
-    inputs by step, its parameters and its resumed run's parameters."""
+    inputs by step, its parameters and its resumed run's parameters.
+    The children's files (checkpoints of ~460 MB each) are deleted once
+    read, so no more than one run's files are on disk at a time."""
+    tmp_path = tmp_path / f"ranks{world}"
+    tmp_path.mkdir()
+    try:
+        return _read_ranks(tmp_path, world)
+    finally:
+        shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+def _read_ranks(tmp_path, world):
     batch = tmp_path / "batch.npz"
     np.savez(batch, **_batch(LOCAL_BATCH * world))
     spec = {"mode": "augment", "model": "s", "batch": str(batch),

@@ -392,10 +392,11 @@ def test_warp_mode_and_unported_options():
         1, 2, 4]
     with pytest.raises(ValueError, match="warp_mode"):
         aot.warp_res_of("eighth")
-    # multi-platform artifacts and half-res fusion are ported
-    # (tests/test_torch_platforms.py, tests/test_torch_knobs.py); replicas
-    # one per card are not
-    with pytest.raises(SystemExit, match="not ported"):
+    # multi-platform artifacts, half-res fusion and replicas are ported
+    # (tests/test_torch_platforms.py, tests/test_torch_knobs.py,
+    # tests/test_torch_multidevice.py); data_parallel=8 at batch 1 is
+    # refused in the JAX package's words before anything is built
+    with pytest.raises(ValueError, match="batch % 8 == 0: got 1"):
         aot.export_serving("s", {}, 64, 64, "x.flowpak", device="cpu",
                            data_parallel=8)
 
@@ -595,10 +596,22 @@ def test_cli_export_npz_and_unported_flags(tmp_path, ckpt_s, trees,
         assert sorted(got.files) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(got[k], want[k])
-    with pytest.raises(SystemExit, match="not ported"):
+    # --data_parallel: refused where the batch does not split, else one
+    # replica's graph that loads as N replicas
+    with pytest.raises(SystemExit, match="batch % 8 == 0: got 1"):
         cli.main(["export", "--aot", "--ckpt", str(ckpt_s), "--out",
                   str(tmp_path / "x.flowpak"), "--device", "cpu",
                   "--data_parallel", "8"])
+    capsys.readouterr()
+    dp = tmp_path / "dp.flowpak"
+    assert cli.main(["export", "--aot", "--ckpt", str(ckpt_s), "--out",
+                     str(dp), "--device", "cpu", "--model", "s",
+                     "--height", "64", "--width",
+                     "64", "--batch", "2", "--data_parallel", "2"]) == 0
+    meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (meta["batch"], meta["data_parallel"]) == (2, 2)
+    assert aot.load_serving(dp, device="cpu").devices == [
+        torch.device("cpu")] * 2
 
 
 @pytest.mark.parametrize("name", ["c", "2"])

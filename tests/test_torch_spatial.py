@@ -310,12 +310,12 @@ def test_spatial_export_of_a_correlation_model_keeps_one_node(tmp_path):
     ({"spatial_tiles": 2, "spatial_overlap": 48}, ValueError,
      "multiple of 32"),
     ({"spatial_tiles": 2, "width": 96}, ValueError, "multiples of 64"),
-    ({"data_parallel": 2}, SystemExit, "at least two cards"),
+    ({"data_parallel": 2}, ValueError, "batch % 2 == 0"),
 ])
 def test_spatial_export_refusals(params_s, tmp_path, kw, err, match):
     """The JAX package's refusals (exclusive with data parallelism,
-    batch 1 only, overlap %32, W %64), each before anything is traced;
-    ``data_parallel`` > 1 stays refused until a machine has two cards."""
+    batch 1 only, overlap %32, W %64, a batch that ``data_parallel``
+    does not divide), each before anything is traced."""
     kw = dict(kw)
     width = kw.pop("width", 64)
     with pytest.raises(err, match=match):
